@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from this checkout, holds each against its
+plain PyTorch version, then drives the port's main path (exact
+primer_match scan, both strands) at full size and checks its output:
+
+1. card: name and power limit, kernel build time;
+2. kernel against plain: ``scan_occupancy`` on the card equals
+   ``scan_occupancy_ref`` on the card bit for bit (2^24 positions, the
+   bench primer set at k = 0 and 1, an odd length, 150 and 2048 patterns,
+   140-base patterns, the 15-code IUPAC alphabet);
+3. main path: ``ConvScanner.scan`` over a resident 2^28-position
+   database equals the native host shift-and's hit list; then the same
+   device route on a small scan (n < 2^20), on 140-base patterns and on
+   degenerate primers over an IUPAC database, each launching the kernel;
+4. serving: ``scan_stream`` over 16 blocks of 2^24 equals per-block scans,
+   then a ``torch.profiler`` breakdown (device time per kernel) of the
+   main path scan, the resident stream and the uploaded stream;
+5. CLI: ``primer_match -r -c`` and ``-r`` through the device route and the
+   host route print the same bytes.
+
+Every phase raises on a mismatch.  The line before the last is a JSON
+object with each kernel's launches on the main path, error and times; the
+last line is ``{"ok": true, "device": {...}}``.  Needs a CUDA device:
+without one it exits 1 and prints no result.
+"""
+
+import contextlib
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+SEED = 20240601
+# bench.py's headline primer set (its PATS), both strands: P = 20
+PATS = [
+    "AGAAGCGAGTTCT", "CGCCAGCAGAGTT", "TTTTCTGAGAATCAAG",
+    "CTATTGATAAGGGAGTGC", "ATGGCGGTTTTGTCGAA", "AAGAAAAGGGGGAAA",
+    "TCATGAAGTAAAC", "TTGGCTGCTGCCCCCAG", "AGAAAAGGGGGAAA",
+    "CTATTGATAAGGGAGTG",
+]
+TABLE = b"ACGT\n"
+EOS = 4
+MAIN_N = 1 << 28          # about one human chromosome, resident whole
+BLOCK_N = 1 << 24         # the serving block and the kernel check size
+ENTRY = 2_000_000         # bases per database entry, as bench.py's corpus
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps=10):
+    """Median milliseconds of ``fn()`` on the card (CUDA events), after a
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def make_db(n, seed):
+    """Random ACGT codes split into ENTRY-base entries by EOS (EOS first,
+    as compress_seq lays a database out), primers and their reverse
+    complements planted at known offsets, one ending at the array end."""
+    from sequence_alignment_tools_tpu.io.database import SeqDB
+    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    eos_at = np.arange(0, n, ENTRY + 1)
+    codes[eos_at] = EOS
+    starts = eos_at + 1
+    lengths = np.minimum(ENTRY, n - starts)
+    planted = []
+    for i, p in enumerate(PATS):
+        for strand, s in enumerate((p, reverse_comp(p))):
+            e = (2 * i + strand) % len(starts)
+            at = int(starts[e]) + 1000 + 7919 * i
+            planted.append((at, s))
+    last = PATS[-1]
+    planted.append((n - len(last), last))
+    for at, s in planted:
+        codes[at : at + len(s)] = [TABLE.index(c.encode()) for c in s]
+    db = SeqDB(codes=codes, table=TABLE, entry_starts=starts,
+               entry_lengths=lengths,
+               headers=[f"chr{i} synthetic entry {i}" for i in
+                        range(len(starts))])
+    return db, planted
+
+
+def check_kernels(cases, dev):
+    """Phase 2: kernel against plain on each case; returns the largest
+    absolute difference seen (0 when bit-identical)."""
+    import torch
+
+    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        scan_occupancy,
+        scan_occupancy_ref,
+    )
+
+    worst = 0
+    for name, codes_dev, n, dt in cases:
+        got = scan_occupancy(codes_dev, dt.weights16, dt.thresholds, n, EOS)
+        want = scan_occupancy_ref(codes_dev, dt.weights16, dt.thresholds, n,
+                                  EOS)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        worst = max(worst, err)
+        log(f"kernel check {name}: n={n} P={dt.lengths.numel()} "
+            f"occupied={int(want.sum())}/{want.numel()} max_abs_err={err}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"scan_occupancy differs from plain: {name}")
+    return worst
+
+
+def random_pats(rng, count, lo, hi):
+    return ["".join("ACGT"[c] for c in rng.integers(0, 4, size=ln))
+            for ln in rng.integers(lo, hi + 1, size=count)]
+
+
+def iupac_db(n, seed):
+    """An IUPAC database (15 codes: ACGT with 3% ambiguity codes) in two
+    entries, and 8 degenerate primers drawn from it plus a heavy-wildcard
+    one, for a -w scan."""
+    from sequence_alignment_tools_tpu.io.database import SeqDB
+
+    rng = np.random.default_rng(seed)
+    table = np.frombuffer(b"ACGTRYSWKMBDHVN", dtype=np.uint8)
+    base = rng.integers(0, 4, size=n)
+    amb = rng.random(n) < 0.03
+    base[amb] = rng.integers(4, 15, size=int(amb.sum()))
+    seq = table[base].tobytes()
+    db = SeqDB.from_entries([("w1", seq[: n // 2]), ("w2", seq[n // 2 :])])
+    text = seq.decode()
+    pats = [text[i : i + 14] for i in range(1000, n - 100, n // 8)]
+    return db, pats + ["ACGRYTNNSWKT"]
+
+
+def device_route_vs_host(name, tables, codes, dev):
+    """One scan through the port's device route (host rung off) against
+    the native host shift-and; fails unless the filter kernel ran."""
+    from sequence_alignment_tools_tpu.ops.host_scan import HostShiftAnd
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        scan_occupancy,
+    )
+
+    host = HostShiftAnd(tables, 0, False)
+    if not host.available():
+        raise RuntimeError(f"{name}: native shift-and unavailable")
+    want = list(host.scan(codes))
+    sc = ConvScanner(tables, k=0, device=dev)
+    sc.use_host = False
+    scan_occupancy.launches = 0
+    got = list(sc.scan(codes))
+    launches = scan_occupancy.launches
+    if launches < 1:
+        raise AssertionError(f"{name}: the device route never launched "
+                             "scan_occupancy")
+    if got != want or not want:
+        raise AssertionError(f"{name}: device route differs from host "
+                             f"shift-and ({len(got)} vs {len(want)} hits)")
+    log(f"device route {name}: n={len(codes)} P={tables.P} "
+        f"Lmax={tables.Lmax} alpha={tables.alpha}: {len(got)} hits == "
+        f"host shift-and, scan_occupancy launches {launches}")
+
+
+def profile(label, fn, reps):
+    """Print ``fn``'s device self time per kernel under torch.profiler
+    (``reps`` calls), with the host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3 / reps, ev.count / reps, ev.key))
+    rows.sort(reverse=True)
+    # the aten:: rows repeat the device time of the kernels they launch
+    dev_ms = sum(ms for ms, _, key in rows if not key.startswith("aten::")
+                 and key != "Activity Buffer Request")
+    log(f"== profile {label}: {reps} reps, wall {wall / reps:.3f} ms/rep, "
+        f"device time {dev_ms:.3f} ms/rep (kernels and copies, "
+        f"{100 * dev_ms * reps / wall:.1f}% of wall)")
+    for ms, count, key in rows[:14]:
+        log(f"   {ms:10.4f} ms/rep  x{count:6.1f}  {key[:90]}")
+
+
+def write_bench_corpus(path):
+    """bench.py's 16 M-base corpus layout (8 entries of 2,000,000 random
+    bases, 70-character lines, seed 42)."""
+    rng = np.random.default_rng(42)
+    with open(path, "w") as f:
+        for e in range(8):
+            f.write(f">bench{e} synthetic benchmark entry {e}\n")
+            seq = rng.integers(0, 4, size=ENTRY)
+            s = np.frombuffer(b"ACGT", dtype=np.uint8)[seq].tobytes().decode()
+            for i in range(0, ENTRY, 70):
+                f.write(s[i : i + 70] + "\n")
+
+
+def run_cli(argv):
+    from sequence_alignment_tools_tpu_torch.apps.primer_match import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
+    from sequence_alignment_tools_tpu.ops.host_scan import HostShiftAnd
+    from sequence_alignment_tools_tpu.ops.tables import build_tables
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools_tpu_torch.ops.cuda import build
+    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        scan_occupancy,
+        scan_occupancy_ref,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.tables import device_tables
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+
+    # 1. card and build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.3f} s "
+        f"({', '.join(sorted(libs))})")
+
+    # 2. kernel against plain at the serving block size
+    db, planted = make_db(MAIN_N, SEED)
+    codes = db.codes
+    ps = build_pattern_set(PATS, rev_comp=True)
+    tables = build_tables(ps, db, wc=False, textn=False)
+    blk_dev = torch.from_numpy(codes[:BLOCK_N].copy()).to(dev)
+    dt0 = device_tables(tables, 0, False, dev)
+    dt1 = device_tables(tables, 1, True, dev)
+    rng = np.random.default_rng(SEED + 1)
+
+    def random_set(count, lo, hi):
+        pats = random_pats(rng, count - len(PATS), lo, hi)
+        t = build_tables(build_pattern_set(PATS + pats, rev_comp=False), db,
+                         wc=False, textn=False)
+        return device_tables(t, 0, False, dev)
+
+    dt150 = random_set(150, 12, 20)
+    dt2048 = random_set(2048, 14, 24)
+    long_pats = random_pats(rng, 2, 140, 140)
+    long_tables = build_tables(build_pattern_set(long_pats, rev_comp=True),
+                               db, wc=False, textn=False)
+    wdb, wpats = iupac_db(1 << 20, SEED + 2)
+    wtables = build_tables(build_pattern_set(wpats, rev_comp=True), wdb,
+                           wc=True, textn=False)
+    wdev = torch.from_numpy(wdb.codes.copy()).to(dev)
+    max_err = check_kernels([
+        ("k=0", blk_dev, BLOCK_N, dt0),
+        ("k=1 poison", blk_dev, BLOCK_N, dt1),
+        ("odd n", blk_dev, BLOCK_N - 12345, dt0),
+        ("P=150", blk_dev, BLOCK_N, dt150),
+        ("P=2048 (pattern chunks)", blk_dev[: 1 << 20], 1 << 20, dt2048),
+        ("Lmax=140", blk_dev[: 1 << 20], 1 << 20,
+         device_tables(long_tables, 1, True, dev)),
+        ("IUPAC alphabet", wdev, len(wdb.codes),
+         device_tables(wtables, 0, False, dev)),
+    ], dev)
+    k_ms = cuda_ms(lambda: scan_occupancy(
+        blk_dev, dt0.weights16, dt0.thresholds, BLOCK_N, EOS), reps=20)
+    p_ms = cuda_ms(lambda: scan_occupancy_ref(
+        blk_dev, dt0.weights16, dt0.thresholds, BLOCK_N, EOS), reps=10)
+    log(f"scan_occupancy at n=2^24, P=20, k=0 on {smi}: kernel {k_ms:.4f} "
+        f"ms, plain {p_ms:.4f} ms (CUDA events, median)")
+    del blk_dev
+
+    # 3. main path: the fused scan over a resident 2^28-position database
+    host = HostShiftAnd(tables, 0, False)
+    if not host.available():
+        raise RuntimeError("native shift-and library unavailable: no "
+                           "reference for the main path")
+    t0 = time.perf_counter()
+    want = list(host.scan(codes))
+    log(f"host shift-and reference: {len(want)} hits in "
+        f"{time.perf_counter() - t0:.3f} s")
+    sc = ConvScanner(tables, k=0, device=dev)
+    sc.use_host = False
+    scan_occupancy.launches = 0
+    got = list(sc.scan(codes))
+    main_launches = scan_occupancy.launches
+    if main_launches < 1:
+        raise AssertionError("main path never launched scan_occupancy")
+    if got != want:
+        raise AssertionError(
+            f"fused scan differs from host shift-and: {len(got)} vs "
+            f"{len(want)} hits")
+    ends = {(e, p) for e, p, _ in got}
+    lengths = tables.lengths
+    for at, s in planted:
+        pid = next(p for p in range(tables.P) if ps.pattern(p + 1) == s)
+        if (at + int(lengths[pid]), pid) not in ends:
+            raise AssertionError(f"planted {s} at {at} not found")
+    log(f"main path: {len(got)} hits == host shift-and, all "
+        f"{len(planted)} plants found, scan_occupancy launches "
+        f"{main_launches}")
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_hits = sum(1 for _ in sc.scan(codes))
+        secs.append(time.perf_counter() - t0)
+        if n_hits != len(want):
+            raise AssertionError("repeated scan changed its hit count")
+    s_main = statistics.median(secs)
+    log(f"main path scan, n=2^28 resident, P=20, k=0 on {smi}: "
+        f"{s_main:.6f} s per scan, {MAIN_N / s_main / 1e9:.3f} Gbases/s "
+        f"(host clock, median of 5)")
+    main_dev = sc._device_form(codes)
+    dt = sc._tables_dev()
+    got_occ = scan_occupancy(main_dev, dt.weights16, dt.thresholds, MAIN_N,
+                             EOS)
+    want_occ = scan_occupancy_ref(main_dev, dt.weights16, dt.thresholds,
+                                  MAIN_N, EOS)
+    if not torch.equal(got_occ, want_occ):
+        raise AssertionError("scan_occupancy differs from plain at 2^28")
+    k28 = cuda_ms(lambda: scan_occupancy(
+        main_dev, dt.weights16, dt.thresholds, MAIN_N, EOS), reps=10)
+    p28 = cuda_ms(lambda: scan_occupancy_ref(
+        main_dev, dt.weights16, dt.thresholds, MAIN_N, EOS), reps=3)
+    log(f"scan_occupancy at n=2^28, P=20, k=0 on {smi}: kernel {k28:.4f} "
+        f"ms, plain {p28:.4f} ms (CUDA events, median; equal)")
+    del main_dev, got_occ, want_occ
+
+    # 3b. the same device route on the shapes the TPU kernel gated off
+    small = codes[: 1 << 16]
+    device_route_vs_host("n=2^16", tables, small, dev)
+    long_codes = codes[(1 << 20) : (1 << 20) + (1 << 18)].copy()
+    for i, p in enumerate(long_pats):
+        at = 5000 + 90_000 * i
+        long_codes[at : at + len(p)] = [TABLE.index(c.encode()) for c in p]
+    device_route_vs_host("Lmax=140", long_tables, long_codes, dev)
+    device_route_vs_host("IUPAC -w", wtables, wdb.codes, dev)
+
+    # 4. serving: scan_stream over 16 blocks of 2^24
+    blocks = [codes[i * BLOCK_N : (i + 1) * BLOCK_N] for i in range(16)]
+    want_blocks = [list(sc.scan(b)) for b in blocks]
+    scan_occupancy.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_blocks = dict(sc.scan_stream(iter(blocks)))
+    s_stream = time.perf_counter() - t0
+    stream_launches = scan_occupancy.launches
+    if [got_blocks[i] for i in range(16)] != want_blocks:
+        raise AssertionError("scan_stream differs from per-block scan")
+    if stream_launches < 16:
+        raise AssertionError("scan_stream did not launch per block")
+    log(f"scan_stream, 16 x 2^24 host blocks (uploads included) on {smi}: "
+        f"{s_stream:.6f} s, {16 * BLOCK_N / s_stream / 1e9:.3f} Gbases/s")
+    resident = blocks[0]
+    list(sc.scan_stream(resident for _ in range(4)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _i, hits in sc.scan_stream(resident for _ in range(64)):
+        if hits != want_blocks[0]:
+            raise AssertionError("resident scan_stream changed its hits")
+    s_res = time.perf_counter() - t0
+    log(f"scan_stream, 64 reps of one resident 2^24 block on {smi}: "
+        f"{s_res / 64:.6f} s per block, "
+        f"{64 * BLOCK_N / s_res / 1e9:.3f} Gbases/s")
+    profile("main path scan, n=2^28 resident, P=20, k=0",
+            lambda: list(sc.scan(codes)), 5)
+    profile("scan_stream, resident 2^24 block x 64",
+            lambda: list(sc.scan_stream(resident for _ in range(64))), 1)
+    profile("scan_stream, 16 distinct 2^24 host blocks",
+            lambda: list(sc.scan_stream(iter(blocks))), 1)
+
+    # 5. CLI: device route and host route print the same bytes
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "corpus.fasta")
+        pfile = os.path.join(tmp, "primers.txt")
+        write_bench_corpus(fasta)
+        with open(pfile, "w") as f:
+            f.write("\n".join(PATS) + "\n")
+        for flags in (["-r", "-c"], ["-r"]):
+            argv = ["-i", fasta, "-P", pfile] + flags
+            os.environ["SAT_HOST_SCAN"] = "0"
+            scan_occupancy.launches = 0
+            t0 = time.perf_counter()
+            out_dev = run_cli(argv)
+            s_cli = time.perf_counter() - t0
+            cli_launches = scan_occupancy.launches
+            del os.environ["SAT_HOST_SCAN"]
+            out_host = run_cli(argv)
+            if cli_launches < 1:
+                raise AssertionError("CLI device run never launched the "
+                                     "scan filter")
+            if out_dev != out_host or not out_dev:
+                raise AssertionError(f"CLI {flags}: device and host outputs "
+                                     "differ")
+            log(f"CLI primer_match {' '.join(flags)}: {len(out_dev)} bytes, "
+                f"device == host, device run {s_cli:.3f} s, scan_occupancy "
+                f"launches {cli_launches}")
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [{
+        "name": "scan_occupancy",
+        "route": "cuda",
+        "source": "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"
+                  "scan_filter.cu",
+        "replaces": "sequence_alignment_tools_tpu/ops/pallas/"
+                    "scan_kernel.py:240",
+        "launches": main_launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

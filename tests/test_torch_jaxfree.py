@@ -1,0 +1,74 @@
+"""The port never imports jax.
+
+A site-less interpreter (``python -S``, ``sys.path`` built by hand as the
+``sat`` launcher builds it) runs the port's CLI on a synthetic database
+through the plain PyTorch scan and through the native host machine, and
+reports whether jax was imported; a source scan checks every file of the
+package and ``chip_smoke.py``.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from sequence_alignment_tools_tpu.apps import primer_match as jax_app
+from tests.conftest import make_synthetic_fasta
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "sequence_alignment_tools_tpu_torch"
+
+BOOT = r"""
+import atexit, os, runpy, sys
+venv = os.path.dirname(os.path.dirname(sys.executable))
+sp = os.path.join(venv, "lib", "python%d.%d" % sys.version_info[:2],
+                  "site-packages")
+if not os.path.isdir(sp):
+    import sysconfig
+    sp = sysconfig.get_paths()["purelib"]
+sys.path[:0] = [sp, sys.argv[1]]
+atexit.register(lambda: sys.stderr.write(
+    "jax_imported=%s\n" % ("jax" in sys.modules)))
+sys.argv = ["sequence_alignment_tools_tpu_torch"] + sys.argv[2:]
+runpy.run_module("sequence_alignment_tools_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+@pytest.mark.parametrize("host_scan,flags", [("0", ["-r", "-c"]),
+                                             ("1", ["-r"])],
+                         ids=["torch-blocks", "host-machine"])
+def test_sitless_cli_never_imports_jax(tmp_path, capsys, monkeypatch,
+                                       host_scan, flags):
+    fasta = str(tmp_path / "db.fasta")
+    make_synthetic_fasta(fasta, total=40_000, seed=5,
+                         planted=[(1200, "ACGTTGCAGGTACCA"),
+                                  (9000, "TGGTACCTGCAACGT")])
+    pats = tmp_path / "p.txt"
+    pats.write_text("ACGTTGCAGGTACCA\nGATTACAGATTACA\n")
+    argv = ["-i", fasta, "-P", str(pats)] + flags
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env.update(SAT_DEVICE="cpu", SAT_HOST_SCAN=host_scan)
+    r = subprocess.run(
+        [sys.executable, "-S", "-c", BOOT, str(REPO), "primer_match"] + argv,
+        capture_output=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr.decode()[-1500:]
+    assert b"jax_imported=False" in r.stderr, r.stderr.decode()[-1500:]
+    monkeypatch.setenv("SAT_HOST_SCAN", "0")
+    monkeypatch.setenv("SAT_MESH", "0")
+    capsys.readouterr()
+    jax_app.main(argv)
+    want = capsys.readouterr().out
+    assert want.count("\n") >= 2
+    assert r.stdout.decode() == want
+
+
+def test_no_file_imports_jax():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 12
+    for f in files:
+        text = f.read_text()
+        assert "import jax" not in text and "from jax" not in text, f
