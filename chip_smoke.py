@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version, then drives the port's main path (exact
-primer_match scan, both strands) at full size and checks its output:
+plain PyTorch version, then drives the port's main paths (exact and k = 1
+primer_match, both strands) at full size and checks their output:
 
 1. card: name and power limit, kernel build time;
 2. kernel against plain: ``scan_occupancy`` on the card equals
@@ -19,8 +19,20 @@ primer_match scan, both strands) at full size and checks its output:
 4. serving: ``scan_stream`` over 16 blocks of 2^24 equals per-block scans,
    then a ``torch.profiler`` breakdown (device time per kernel) of the
    main path scan, the resident stream and the uploaded stream;
-5. CLI: ``primer_match -r -c`` and ``-r`` through the device route and the
-   host route print the same bytes.
+5. ``seed_gate`` against plain: the k > 0 seed enumeration and extension
+   gate on the card equals ``seed_gate_ref`` on the card (sorted survivor
+   sets) on a 2^22 block with planted 1- and 2-edit variants, some next to
+   EOS and one primer split by EOS: halves k = 1, ``-K 1`` (band 0),
+   k = 2 (node 11), bases (``-3 8``), an odd length, 2048 seeds and a
+   forced overflow (cap 1); kernel and plain timed at 2^22 and 2^28;
+6. the k = 1 main path: ``PrimerMatchModel(k=1, indels=True)`` (halves)
+   over the resident 2^28 database, device route against the host route
+   (native shift-and seeds), every exact and 1-edit plant found, both
+   kernels launched; ``engine_hits_stream`` throughput, the host tail and
+   a ``torch.profiler`` breakdown;
+7. CLI: ``primer_match -r -c``, ``-r``, ``-k 1 -r -c``, ``-K 1 -r`` and
+   ``-k 1 -r -3 8`` (bases) through the device route and the host route
+   print the same bytes, and the device run launches the kernels.
 
 Every phase raises on a mismatch.  The line before the last is a JSON
 object with each kernel's launches on the main path, error and times; the
@@ -78,17 +90,42 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
+def edit(rng, s, kinds):
+    """``s`` with one edit per entry of ``kinds`` ("sub", "del" or "ins")
+    at random inner positions."""
+    out = list(s)
+    for kind in kinds:
+        i = int(rng.integers(2, len(out) - 2))
+        if kind == "sub":
+            out[i] = "ACGT"[("ACGT".index(out[i]) + int(rng.integers(1, 4)))
+                            % 4]
+        elif kind == "del":
+            del out[i]
+        else:
+            out.insert(i, "ACGT"[int(rng.integers(0, 4))])
+    return "".join(out)
+
+
+VARIANT_EDITS = (("sub",), ("del",), ("ins",), ("sub", "ins"))
+
+
 def make_db(n, seed):
     """Random ACGT codes split into ENTRY-base entries by EOS (EOS first,
     as compress_seq lays a database out), primers and their reverse
-    complements planted at known offsets, one ending at the array end."""
+    complements planted at known offsets, one ending at the array end.
+
+    Inside the first 2^22 positions it also plants edit variants of each
+    primer and its reverse complement (one substitution, deletion or
+    insertion, and two edits), a variant on each side of the first entry
+    boundary (next to EOS) and a primer split by the second boundary's
+    EOS.  Returns (db, planted exact copies, variants), a variant being
+    (start, primer strand, its text, number of edits)."""
     from sequence_alignment_tools_tpu.io.database import SeqDB
     from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
 
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, size=n, dtype=np.uint8)
     eos_at = np.arange(0, n, ENTRY + 1)
-    codes[eos_at] = EOS
     starts = eos_at + 1
     lengths = np.minimum(ENTRY, n - starts)
     planted = []
@@ -99,13 +136,30 @@ def make_db(n, seed):
             planted.append((at, s))
     last = PATS[-1]
     planted.append((n - len(last), last))
+    variants = []
+    slot = 0
+    for i, p in enumerate(PATS):
+        for s in (p, reverse_comp(p)):
+            for kinds in VARIANT_EDITS:
+                at = int(starts[slot % 2]) + 100_000 + 23_017 * (slot // 2)
+                variants.append((at, s, edit(rng, s, kinds), len(kinds)))
+                slot += 1
+    b1 = int(eos_at[1])
+    v = edit(rng, PATS[0], ("sub",))
+    variants.append((b1 - len(v), PATS[0], v, 1))
+    v = edit(rng, reverse_comp(PATS[1]), ("del",))
+    variants.append((b1 + 1, reverse_comp(PATS[1]), v, 1))
+    split = (int(eos_at[2]) - 7, PATS[4], PATS[4], None)
     for at, s in planted:
         codes[at : at + len(s)] = [TABLE.index(c.encode()) for c in s]
+    for at, _s, v, _e in variants + [split]:
+        codes[at : at + len(v)] = [TABLE.index(c.encode()) for c in v]
+    codes[eos_at] = EOS
     db = SeqDB(codes=codes, table=TABLE, entry_starts=starts,
                entry_lengths=lengths,
                headers=[f"chr{i} synthetic entry {i}" for i in
                         range(len(starts))])
-    return db, planted
+    return db, planted, variants
 
 
 def check_kernels(cases, dev):
@@ -219,15 +273,98 @@ def profile(label, fn, reps):
         log(f"   {ms:10.4f} ms/rep  x{count:6.1f}  {key[:90]}")
 
 
+def survivor_set(row, cap):
+    """(true count, anchors, sids) of a ``[count, anchors (cap), sids
+    (cap)]`` row, the kept pairs sorted by (anchor, sid)."""
+    row = row.cpu().numpy().astype(np.int64)
+    m = min(int(row[0]), cap)
+    a, s = row[1 : 1 + m], row[1 + cap : 1 + cap + m]
+    o = np.lexsort((s, a))
+    return int(row[0]), a[o], s[o]
+
+
+def gate_setup(db, pats, k, indels, dev, node=0, tplen=0, rev_comp=True):
+    """(engine, seed DeviceTables, GateTables on the card) of the port's
+    pigeonhole engine for ``pats`` over ``db``."""
+    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
+    from sequence_alignment_tools_tpu_torch.models.primer_match import (
+        PrimerMatchModel,
+    )
+
+    ps = build_pattern_set(pats, rev_comp=rev_comp, tplen=tplen)
+    m = PrimerMatchModel(db, ps, k=k, indels=indels, node=node, device=dev)
+    if m.engine == "halves":
+        _o, sc, _b, dirs, ext, geomB = m._halves_ctx()
+    else:
+        _o, _s, sc, _b, dirs, ext, geomB = m._bases_ctx()
+    gate = m._engine_gate(sc, dirs, ext, geomB, lambda p0: p0 + 1)
+    return m.engine, sc._tables_dev(), sc._gate_dev(gate)
+
+
+def check_seed_gate(cases):
+    """Phase 6: ``seed_gate`` on the card against ``seed_gate_ref`` on the
+    card, on the seed filter's candidate microblocks; the survivor sets
+    must be equal (with a cap below the count: the true counts equal and
+    the kept survivors among the plain ones).  Returns the largest
+    difference seen: count difference plus survivors in one set only."""
+    import torch
+
+    from sequence_alignment_tools_tpu_torch.ops.compact import compact_mask
+    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        scan_occupancy,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.seed_gate import (
+        seed_gate,
+        seed_gate_ref,
+    )
+
+    worst = 0
+    full = 1 << 20
+    for name, codes_dev, n, dt, gt, indels, cap_mb, cap in cases:
+        occ = scan_occupancy(codes_dev, dt.weights16, dt.thresholds, n, EOS)
+        mb_count, mb_idx = compact_mask(occ, cap_mb)
+        got = seed_gate(codes_dev, n, dt, mb_count, mb_idx, gt, EOS, indels,
+                        cap)
+        want = seed_gate_ref(codes_dev, n, dt, mb_count, mb_idx, gt, EOS,
+                             indels, full)
+        torch.cuda.synchronize()
+        gc, ga, gs = survivor_set(got, cap)
+        wc, wa, ws = survivor_set(want, full)
+        wset = set(zip(wa.tolist(), ws.tolist()))
+        gset = set(zip(ga.tolist(), gs.tolist()))
+        if cap >= wc:
+            err = abs(gc - wc) + len(wset ^ gset)
+        else:
+            err = abs(gc - wc) + len(gset - wset)
+        worst = max(worst, err)
+        log(f"seed_gate check {name}: n={n} seeds={dt.lengths.numel()} "
+            f"Lg={gt.Lg} band={gt.band} candidate microblocks="
+            f"{int(mb_count)} (cap {cap_mb}) survivors={wc} (cap {cap}) "
+            f"err={err}")
+        if err or wc == 0:
+            raise AssertionError(f"seed_gate differs from plain: {name}")
+    return worst
+
+
 def write_bench_corpus(path):
     """bench.py's 16 M-base corpus layout (8 entries of 2,000,000 random
-    bases, 70-character lines, seed 42)."""
+    bases, 70-character lines, seed 42), with each primer planted once
+    exact and its reverse complement once with one substitution."""
+    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+
     rng = np.random.default_rng(42)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     with open(path, "w") as f:
         for e in range(8):
             f.write(f">bench{e} synthetic benchmark entry {e}\n")
-            seq = rng.integers(0, 4, size=ENTRY)
-            s = np.frombuffer(b"ACGT", dtype=np.uint8)[seq].tobytes().decode()
+            seq = acgt[rng.integers(0, 4, size=ENTRY)]
+            for i in range(e, len(PATS), 8):
+                for at, v in ((400_000 + 9_973 * i, PATS[i]),
+                              (1_200_000 + 9_973 * i,
+                               edit(rng, reverse_comp(PATS[i]), ("sub",)))):
+                    seq[at : at + len(v)] = np.frombuffer(v.encode(),
+                                                          np.uint8)
+            s = seq.tobytes().decode()
             for i in range(0, ENTRY, 70):
                 f.write(s[i : i + 70] + "\n")
 
@@ -275,7 +412,7 @@ def main():
         f"({', '.join(sorted(libs))})")
 
     # 2. kernel against plain at the serving block size
-    db, planted = make_db(MAIN_N, SEED)
+    db, planted, variants = make_db(MAIN_N, SEED)
     codes = db.codes
     ps = build_pattern_set(PATS, rev_comp=True)
     tables = build_tables(ps, db, wc=False, textn=False)
@@ -418,45 +555,179 @@ def main():
     profile("scan_stream, 16 distinct 2^24 host blocks",
             lambda: list(sc.scan_stream(iter(blocks))), 1)
 
-    # 5. CLI: device route and host route print the same bytes
+    # 5. seed_gate against plain: the k > 0 seed scan's second kernel
+    from sequence_alignment_tools_tpu_torch.models.primer_match import (
+        PrimerMatchModel,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.compact import compact_mask
+    from sequence_alignment_tools_tpu_torch.ops.cuda.seed_gate import (
+        gated_hits,
+        seed_gate,
+        seed_gate_ref,
+    )
+
+    gate_n = 1 << 22
+    gate_dev = torch.from_numpy(codes[:gate_n].copy()).to(dev)
+    nmb22 = gate_n // 32
+    cases = []
+    setups = {}
+    for name, k, indels, node, tplen in (
+            ("halves k=1", 1, True, 0, 0), ("halves -K 1", 1, False, 0, 0),
+            ("halves k=2 (node 11)", 2, True, 11, 0),
+            ("bases k=1 (-3 8)", 1, True, 0, 8)):
+        engine, dt_s, gt = gate_setup(db, PATS, k, indels, dev, node=node,
+                                      tplen=tplen)
+        if engine != name.split()[0]:
+            raise AssertionError(f"{name}: engine {engine}")
+        cases.append((name, gate_dev, gate_n, dt_s, gt, indels, nmb22,
+                      1 << 16))
+        setups[name] = (dt_s, gt)
+    dt_h, gt_h = setups["halves k=1"]
+    cases.append(("halves k=1, odd n", gate_dev, gate_n - 12345, dt_h,
+                  gt_h, True, nmb22, 1 << 16))
+    _e, dt_big, gt_big = gate_setup(
+        db, random_pats(rng, 1024, 14, 24), 1, True, dev, rev_comp=False)
+    cases.append(("2048 seeds (pattern chunks, gate bits via __ldg)",
+                  gate_dev[: 1 << 20], 1 << 20, dt_big, gt_big, True,
+                  1 << 15, 1 << 16))
+    cases.append(("overflow (2048 microblocks, cap 1), halves k=2",
+                  gate_dev, gate_n, *setups["halves k=2 (node 11)"], True,
+                  2048, 1))
+    gate_err = check_seed_gate(cases)
+
+    def gate_inputs(codes_dev, n):
+        occ = scan_occupancy(codes_dev, dt_h.weights16, dt_h.thresholds, n,
+                             EOS)
+        return compact_mask(occ, n // 32)
+
+    timings = {}
+    for label, codes_dev, n in (("2^22", gate_dev, gate_n),
+                                ("2^28", sc._device_form(codes), MAIN_N)):
+        mbc, mbi = gate_inputs(codes_dev, n)
+        g_ms = cuda_ms(lambda: seed_gate(codes_dev, n, dt_h, mbc, mbi, gt_h,
+                                         EOS, True, 1 << 16), reps=10)
+        r_ms = cuda_ms(lambda: seed_gate_ref(codes_dev, n, dt_h, mbc, mbi,
+                                             gt_h, EOS, True, 1 << 16),
+                       reps=3)
+        row = gated_hits(codes_dev, n, dt_h, gt_h, EOS, True, n // 32,
+                         1 << 16)
+        timings[label] = (g_ms, r_ms)
+        log(f"seed_gate at n={label}, halves k=1 (40 seeds) on {smi}: "
+            f"kernel {g_ms:.4f} ms, plain {r_ms:.4f} ms (CUDA events, "
+            f"median); {int(row[0])} of {n // 32} microblocks are "
+            f"candidates, {int(row[1])} gate survivors")
+    del gate_dev
+
+    # 6. the k = 1 main path: halves engine over the resident 2^28 database
+    ps1 = build_pattern_set(PATS, rev_comp=True)
+    m_dev = PrimerMatchModel(db, ps1, k=1, indels=True, device=dev)
+    m_dev.use_host = False
+    if m_dev.engine != "halves":
+        raise AssertionError(f"k=1 main path took engine {m_dev.engine}")
+    m_host = PrimerMatchModel(db, ps1, k=1, indels=True, device=dev)
+    m_host.use_host = True
+    t0 = time.perf_counter()
+    want1 = list(m_host.engine_hits())
+    log(f"k=1 host route (native shift-and seeds, batched extension): "
+        f"{len(want1)} engine hits in {time.perf_counter() - t0:.3f} s")
+    scan_occupancy.launches = seed_gate.launches = 0
+    got1 = list(m_dev.engine_hits())
+    k1_launches = {"scan_occupancy": scan_occupancy.launches,
+                   "seed_gate": seed_gate.launches}
+    if min(k1_launches.values()) < 1:
+        raise AssertionError(f"k=1 main path skipped a kernel: {k1_launches}")
+    if got1 != want1 or not got1:
+        raise AssertionError(f"k=1 device route differs from host route: "
+                             f"{len(got1)} vs {len(want1)} engine hits")
+    pid_of = {}
+    for pid in range(ps1.n_total, 0, -1):
+        pid_of[ps1.pattern(pid)] = pid
+    ends_of = {}
+    for end, pid, _v in got1:
+        ends_of.setdefault(pid, []).append(end)
+    covered = [(at, s, s) for at, s in planted] + [
+        (at, s, v) for at, s, v, ne in variants if ne == 1]
+    for at, s, v in covered:
+        if not any(abs(e - (at + len(v))) <= 2
+                   for e in ends_of.get(pid_of[s], ())):
+            raise AssertionError(f"k=1: planted {v} ({s}) at {at} not found")
+    log(f"k=1 main path: {len(got1)} engine hits == host route, all "
+        f"{len(covered)} exact and 1-edit plants found, launches "
+        f"{k1_launches}")
+    list(m_dev.engine_hits_stream(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = list(m_dev.engine_hits_stream(5))
+    s_k1 = time.perf_counter() - t0
+    if runs != [got1] * 5:
+        raise AssertionError("k=1 engine_hits_stream changed its hits")
+    log(f"k=1 engine_hits_stream, n=2^28 resident, P=20 (40 half seeds) on "
+        f"{smi}: {s_k1 / 5:.6f} s per run, {5 * MAIN_N / s_k1 / 1e9:.3f} "
+        f"Gbases/s (host clock, 5 runs)")
+    _o, sc1, _b, dirs, ext, geomB = m_dev._halves_ctx()
+    ends, hids = m_dev._seed_candidates(sc1, dirs, ext, geomB,
+                                        lambda p0: p0 + 1)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        m_dev._halves_emit_arrays(ends, hids)
+    log(f"k=1 host tail (native extension + dedup) of {len(ends)} gate "
+        f"survivors: {(time.perf_counter() - t0) / 5 * 1e3:.3f} ms per run")
+    profile("k=1 main path, engine_hits, n=2^28 resident, P=20",
+            lambda: list(m_dev.engine_hits()), 3)
+    del m_host
+
+    # 7. CLI: device route and host route print the same bytes
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "corpus.fasta")
         pfile = os.path.join(tmp, "primers.txt")
         write_bench_corpus(fasta)
         with open(pfile, "w") as f:
             f.write("\n".join(PATS) + "\n")
-        for flags in (["-r", "-c"], ["-r"]):
+        for flags in (["-r", "-c"], ["-r"], ["-k", "1", "-r", "-c"],
+                      ["-K", "1", "-r"], ["-k", "1", "-r", "-3", "8"]):
             argv = ["-i", fasta, "-P", pfile] + flags
             os.environ["SAT_HOST_SCAN"] = "0"
-            scan_occupancy.launches = 0
+            scan_occupancy.launches = seed_gate.launches = 0
             t0 = time.perf_counter()
             out_dev = run_cli(argv)
             s_cli = time.perf_counter() - t0
-            cli_launches = scan_occupancy.launches
+            cli_launches = {"scan_occupancy": scan_occupancy.launches,
+                            "seed_gate": seed_gate.launches}
             del os.environ["SAT_HOST_SCAN"]
             out_host = run_cli(argv)
-            if cli_launches < 1:
-                raise AssertionError("CLI device run never launched the "
-                                     "scan filter")
+            need = ["scan_occupancy"] + (
+                ["seed_gate"] if "-k" in flags or "-K" in flags else [])
+            if min(cli_launches[kname] for kname in need) < 1:
+                raise AssertionError(f"CLI {flags}: the device run skipped "
+                                     f"a kernel: {cli_launches}")
             if out_dev != out_host or not out_dev:
                 raise AssertionError(f"CLI {flags}: device and host outputs "
                                      "differ")
             log(f"CLI primer_match {' '.join(flags)}: {len(out_dev)} bytes, "
-                f"device == host, device run {s_cli:.3f} s, scan_occupancy "
-                f"launches {cli_launches}")
+                f"{out_dev.count(chr(10))} lines, device == host, device "
+                f"run {s_cli:.3f} s, launches {cli_launches}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    src = "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"
+    tpu = "sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py"
     print(json.dumps({"kernels": [{
         "name": "scan_occupancy",
         "route": "cuda",
-        "source": "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"
-                  "scan_filter.cu",
-        "replaces": "sequence_alignment_tools_tpu/ops/pallas/"
-                    "scan_kernel.py:240",
-        "launches": main_launches,
+        "source": src + "scan_filter.cu",
+        "replaces": tpu + ":240",
+        "launches": k1_launches["scan_occupancy"],
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "seed_gate",
+        "route": "cuda",
+        "source": src + "seed_gate.cu",
+        "replaces": tpu + ":796",
+        "launches": k1_launches["seed_gate"],
+        "max_abs_err": gate_err,
+        "ms": timings["2^28"][0],
+        "plain_ms": timings["2^28"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

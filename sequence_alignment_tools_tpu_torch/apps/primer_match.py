@@ -3,8 +3,10 @@
 Port of ``sequence_alignment_tools_tpu/apps/primer_match.py``: the same
 options (``parse_args``, ``load_patterns`` and ``USAGE`` are imported
 from it), the same verbose protocol and the same output bytes, for exact
-search.  ``-k``/``-K`` above 0 and ``-T`` (translated search) are not
-ported yet and exit with a message naming their ROADMAP item.
+search and for ``-k``/``-K`` through the pigeonhole engines (halves,
+bases).  ``-T`` (translated search) and the engines the model does not
+port yet (filter, hash, gs) exit 1 with a message naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -30,14 +32,9 @@ from sequence_alignment_tools_tpu.utils.format import (
 from ..models.primer_match import PrimerMatchModel
 
 
-def _not_ported(opts) -> str | None:
-    if opts["translate"]:
-        return ("-T (peptide patterns against the 6-frame translation) is "
-                "not ported yet (ROADMAP queue 1 item 9)")
-    if opts["k"] > 0:
-        return ("-k/-K above 0 is not ported yet (ROADMAP queue 1 items 6 "
-                "and 7)")
-    return None
+def _not_ported(why: str):
+    sys.stderr.write("primer_match: " + why + "\n")
+    raise SystemExit(1)
 
 
 def run(opts, out) -> None:
@@ -52,10 +49,9 @@ def run(opts, out) -> None:
         timestamp,
     )
 
-    why = _not_ported(opts)
-    if why is not None:
-        sys.stderr.write("primer_match: " + why + "\n")
-        raise SystemExit(1)
+    if opts["translate"]:
+        _not_ported("-T (peptide patterns against the 6-frame translation) "
+                    "is not ported yet (ROADMAP queue 1 item 9)")
     v = opts["verbose"]
     if v:
         timestamp("Release Tag: $Name:  $")
@@ -92,18 +88,21 @@ def run(opts, out) -> None:
     if v:
         for line in db_pick_report(db, opts["memmap"]):
             timestamp(line)
-    model = PrimerMatchModel(
-        db,
-        ps,
-        k=opts["k"],
-        indels=opts["indels"],
-        wc=opts["wc"],
-        textn=opts["tn"],
-        dna_mut=opts["dna_mut"],
-        seedlen=opts["seedlen"],
-        node=opts["node"],
-        report_interval=opts["report_interval"],
-    )
+    try:
+        model = PrimerMatchModel(
+            db,
+            ps,
+            k=opts["k"],
+            indels=opts["indels"],
+            wc=opts["wc"],
+            textn=opts["tn"],
+            dna_mut=opts["dna_mut"],
+            seedlen=opts["seedlen"],
+            node=opts["node"],
+            report_interval=opts["report_interval"],
+        )
+    except NotImplementedError as e:
+        _not_ported(str(e))
     if v:
         for line in select_report(db, ps, k=opts["k"], wc=opts["wc"],
                                   textn=opts["tn"], seedlen=opts["seedlen"],

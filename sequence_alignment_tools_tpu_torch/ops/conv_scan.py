@@ -29,6 +29,14 @@ and seam modes for wide alphabets) are layouts for the TPU; the CUDA
 filter scores any alphabet up to 256 codes and any pattern length, so the
 port has this one device route and none of the knobs that chose between
 routes (``use_pallas``, ``pallas_interpret``, ``block``, ``cap``).
+
+The pigeonhole (k > 0) engines scan their exact seeds through the gated
+route instead (:meth:`ConvScanner.scan_gated`, :meth:`scan_gated_stream`):
+the same filter, then :func:`.cuda.seed_gate.seed_gate`, which enumerates
+every seed hit in the candidate microblocks and keeps the extension gate's
+survivors.  It names every seed at every start, so the JAX route's escape
+list (multi-seed starts, EOS windows, slot overflows rescanned on the
+host) and its slot, chain and fold machinery have no counterpart.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 
 from ..device import resolve_device
 from .cuda.scan_kernel import long_form, scan_hits
+from .cuda.seed_gate import gated_hits
 from .tables import device_tables
 
 
@@ -85,6 +94,7 @@ class ConvScanner:
         self._host_scanner = None
         self._radix_ok_c = None
         self._routes_done = None
+        self._gt_dev = None
 
     def _tables_dev(self):
         if self._dt is None:
@@ -272,6 +282,108 @@ class ConvScanner:
         if ev is not None:
             ev.synchronize()
         return i, list(self._decode_packed(host.numpy(), dev, n, caps))
+
+    # -- the gated route (pigeonhole k > 0 engines) --------------------------
+
+    # The gated route's candidate-microblock cap is every microblock of the
+    # scan: it only sizes compact_mask's index buffer on the device (8 bytes
+    # per 32 positions, never fetched), so the filter's list cannot
+    # overflow and a new scanner's first scan runs once.  The survivor cap
+    # sizes the row the host fetches: it starts small and an overflow
+    # retry grows it stickily.
+    _gsurv_cap = 1 << 12
+
+    def _gated_caps(self, n: int) -> tuple[int, int]:
+        return max(-(-n // self._MB), 1), self._gsurv_cap
+
+    def gated_available(self, n: int) -> bool:
+        """Whether :meth:`scan_gated` takes a seed scan of ``n``
+        positions: every scan of at most ``_PBLOCK`` seeds over a resident
+        array that the host rung does not take."""
+        return (self.mesh is None and self.tables.P <= self._PBLOCK
+                and n <= self._RESIDENT_MAX and not self._host_eligible(n))
+
+    def _gate_dev(self, gt):
+        """``gt`` on the scanner's device, kept for the last gate seen."""
+        if self._gt_dev is None or self._gt_dev[0] is not gt:
+            self._gt_dev = (gt, gt.to(self.device))
+        return self._gt_dev[1]
+
+    def _gated_dispatch(self, codes_dev, n: int, gt_dev, indels: bool,
+                        caps):
+        return gated_hits(codes_dev, n, self._tables_dev(), gt_dev,
+                          self._eos, indels, *caps)
+
+    def _gated_decode(self, packed, codes_dev, n: int, gt_dev, indels: bool,
+                      caps):
+        """(anchors int64, sids int32) from a fetched gated row, retrying
+        with the survivor cap grown past the true count on overflow."""
+        count = int(packed[1])
+        if count > caps[1]:
+            self._gsurv_cap = max(self._gsurv_cap,
+                                  1 << (count - 1).bit_length())
+            caps = (caps[0], self._gsurv_cap)
+            packed = self._gated_dispatch(codes_dev, n, gt_dev, indels, caps)
+            return self._gated_decode(packed.cpu().numpy(), codes_dev, n,
+                                      gt_dev, indels, caps)
+        cap = caps[1]
+        return (packed[2 : 2 + count].astype(np.int64),
+                packed[2 + cap : 2 + cap + count].astype(np.int32))
+
+    def _gated_gate(self, gate, k: int):
+        self._check_mesh()
+        self._check_fused()
+        gt = gate.t if hasattr(gate, "t") else gate
+        if gt.k != k:
+            raise ValueError(f"gate tables built for k={gt.k}, scan asks "
+                             f"k={k}")
+        self._route("gated CUDA seed scan + extension gate"
+                    if self.device.type == "cuda"
+                    else "gated seed scan (plain PyTorch on the CPU)")
+        return self._gate_dev(gt)
+
+    def scan_gated(self, codes: np.ndarray, gate, indels: bool, k: int):
+        """One gated seed scan: (anchors [C] int64, sids [C] int32), every
+        exact seed hit (anchor = seed end position, sid 0-based) that
+        passes the extension gate ``gate`` (a :class:`..gate.GateTables`
+        or :class:`..gate.ExtendGate`), in no order."""
+        _i, anchors, sids = next(self.scan_gated_stream([codes], gate,
+                                                        indels, k))
+        return anchors, sids
+
+    def scan_gated_stream(self, blocks, gate, indels: bool, k: int,
+                          depth: int | None = None):
+        """Pipelined :meth:`scan_gated` over an iterator of flat code
+        arrays, with :meth:`scan_stream`'s transport: block i + 1 ... i +
+        depth are dispatched before block i's row is read from pinned
+        host memory behind its event.  Yields (block_index, anchors, sids)
+        in order."""
+        depth = max(int(depth or self._STREAM_DEPTH), 1)
+        gt_dev = self._gated_gate(gate, k)
+        pending = deque()
+        for i, codes in enumerate(blocks):
+            n = len(codes)
+            if n == 0:
+                pending.append((i, None, None, None, 0, None))
+            else:
+                dev = self._device_form(codes)
+                caps = self._gated_caps(n)
+                packed = self._gated_dispatch(dev, n, gt_dev, indels, caps)
+                host, ev = self._to_host(packed)
+                pending.append((i, host, ev, dev, n, caps))
+            if len(pending) >= depth:
+                yield self._gated_drain(pending.popleft(), gt_dev, indels)
+        while pending:
+            yield self._gated_drain(pending.popleft(), gt_dev, indels)
+
+    def _gated_drain(self, item, gt_dev, indels: bool):
+        i, host, ev, dev, n, caps = item
+        if host is None:
+            return i, np.zeros(0, np.int64), np.zeros(0, np.int32)
+        if ev is not None:
+            ev.synchronize()
+        return (i,) + self._gated_decode(host.numpy(), dev, n, gt_dev,
+                                         indels, caps)
 
     # -- host machine --------------------------------------------------------
 

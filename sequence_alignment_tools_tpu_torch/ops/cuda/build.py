@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/sat_torch_kernels/``
 at the repository root, and loaded with ctypes.  Every source is built
 from this checkout at first use: all nvcc processes start together,
-under a file lock, and a library is rebuilt when its source changes
-(the file name carries a hash of the source).  A failed build raises
-with nvcc's output; nothing falls back to the plain PyTorch versions.
+under a file lock, and a library is rebuilt when its source or a shared
+header (``csrc/*.cuh``) changes (the file name carries a hash of both).
+A failed build raises with nvcc's output; nothing falls back to the
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -40,8 +41,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
@@ -94,5 +97,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             i32, i32, i32,      # Lmax, alpha, P
             i32,                # eos
             vp, i64,            # occ, nmb
+            vp,                 # stream
+        ]
+    elif name == "seed_gate":
+        lib.sat_seed_gate.restype = i32
+        lib.sat_seed_gate.argtypes = [
+            vp, i64,            # codes, n
+            vp, vp, vp,         # w, thr, lengths
+            i32, i32, i32,      # Lmax, alpha, P
+            i32,                # eos
+            vp, vp, i64,        # mb_count, mb_idx, cap_mb
+            vp, vp, vp,         # gate bits, glen, gdir
+            i32, i32, i32, i32,  # Lg, k, band, indels
+            vp, i64,            # out, cap
             vp,                 # stream
         ]

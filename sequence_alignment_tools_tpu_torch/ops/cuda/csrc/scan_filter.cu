@@ -37,69 +37,22 @@
 // pattern-major so the 32 lanes of a warp read one pattern row at a time.
 
 #include <cstdint>
-#include <mutex>
 #include <cuda_runtime.h>
 
+#include "scan_chunk.cuh"
+
 namespace {
+
+using sat::full_grid;
+using sat::LaunchCache;
+using sat::per_pattern_bytes;
+using sat::round_up;
+using sat::stage_chunk;
 
 constexpr int kThreads = 256;  // window starts per tile, 8 warps
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemBudget = 96 * 1024;  // leaves room for 2 blocks per SM
 constexpr int kSmemMax = 232448;        // sm_90 per-block opt-in maximum
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-struct Layout {
-  int text_bytes;   // tile text + halo, rounded to 16
-  int pc;           // patterns per chunk
-  int smem;         // dynamic shared memory bytes
-};
-
-__host__ __device__ inline int per_pattern_bytes(int Lmax, int alpha) {
-  // weights int16 [Lmax][alpha], rem int32 [Lmax], thr + jend int32
-  return Lmax * alpha * 2 + Lmax * 4 + 8;
-}
-
-// Stage patterns [p0, p0 + pc_cur) into shared memory and derive, per
-// pattern, rem[j] = sum over j' >= j of max(0, max_c w[j', c]) and
-// jend = 1 + the last position with any nonzero weight.
-__device__ void stage_chunk(const int16_t* __restrict__ w,
-                            const int32_t* __restrict__ thr, int Lmax,
-                            int alpha, int P, int p0, int pc_cur,
-                            int32_t* thr_s, int32_t* jend_s, int16_t* w_s,
-                            int32_t* rem_s) {
-  const int row = Lmax * alpha;
-  for (int i = threadIdx.x; i < pc_cur * row; i += blockDim.x) {
-    const int pl = i / row;
-    const int r = i - pl * row;  // r = j * alpha + c
-    w_s[i] = w[(int64_t)r * P + p0 + pl];
-  }
-  for (int i = threadIdx.x; i < pc_cur; i += blockDim.x) {
-    thr_s[i] = thr[p0 + i];
-  }
-  __syncthreads();
-  for (int pl = threadIdx.x; pl < pc_cur; pl += blockDim.x) {
-    const int16_t* wp = w_s + pl * row;
-    int acc = 0;
-    int jend = 0;
-    for (int j = Lmax - 1; j >= 0; --j) {
-      int mx = 0;
-      bool nz = false;
-      for (int c = 0; c < alpha; ++c) {
-        const int v = wp[j * alpha + c];
-        mx = v > mx ? v : mx;
-        nz = nz || v != 0;
-      }
-      acc += mx;
-      rem_s[pl * Lmax + j] = acc;
-      if (nz && jend == 0) jend = j + 1;
-    }
-    jend_s[pl] = jend;
-  }
-  __syncthreads();
-}
 
 // Scores one chunk for this thread's window start; returns the warp's
 // vote (true when any lane of the warp hit any pattern of the chunk).
@@ -110,17 +63,8 @@ __device__ bool scan_chunk(const uint8_t* txt, int Lmax, int alpha,
   const int row = Lmax * alpha;
   const uint8_t* tp = txt + threadIdx.x;
   for (int pl = 0; pl < pc_cur; ++pl) {
-    const int16_t* wp = w_s + pl * row;
-    const int32_t* rp = rem_s + pl * Lmax;
-    const int th = thr_s[pl];
-    const int je = jend_s[pl];
-    int s = 0;
-    int j = 0;
-    for (; j < je; ++j) {
-      if (s + rp[j] < th) break;
-      s += wp[j * alpha + tp[j]];
-    }
-    const bool hit = (j == je) && s >= th;
+    const bool hit = sat::window_hits(tp, w_s + pl * row, rem_s + pl * Lmax,
+                                      thr_s[pl], jend_s[pl], alpha);
     if (__any_sync(kFull, hit)) return true;
   }
   return false;
@@ -174,49 +118,7 @@ occupancy_kernel(const uint8_t* __restrict__ codes, int64_t n,
   }
 }
 
-// Per-device launch state, so a launch costs no attribute or occupancy
-// query once its shared-memory size has been seen on that device.
-constexpr int kMaxDevices = 64;
-struct LaunchCache {
-  int smem_attr = 0;  // the largest dynamic smem size set on the kernel
-  int smem = -1;      // the size that `grid_full` was computed for
-  int64_t grid_full = 0;  // SMs x resident blocks per SM at `smem`
-};
-LaunchCache g_cache[kMaxDevices];
-std::mutex g_cache_mu;
-
-// Grid size (before clamping to the tile count) for `smem` bytes of
-// dynamic shared memory on the current device.
-cudaError_t full_grid(int smem, int64_t* grid) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(g_cache_mu);
-  LaunchCache& c = g_cache[dev];
-  if (c.smem == smem) {
-    *grid = c.grid_full;
-    return cudaSuccess;
-  }
-  if (smem > c.smem_attr) {
-    err = cudaFuncSetAttribute(
-        occupancy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    c.smem_attr = smem;
-  }
-  int sms = 0;
-  int per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, occupancy_kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) per_sm = 1;
-  c.smem = smem;
-  c.grid_full = static_cast<int64_t>(sms) * per_sm;
-  *grid = c.grid_full;
-  return cudaSuccess;
-}
+LaunchCache g_launch;
 
 }  // namespace
 
@@ -240,7 +142,8 @@ extern "C" int sat_scan_occupancy(const void* codes, int64_t n,
   const int smem = text_bytes + pc * per;
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   int64_t grid = 0;
-  const cudaError_t err = full_grid(smem, &grid);
+  const cudaError_t err =
+      full_grid(occupancy_kernel, kThreads, smem, g_launch, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t ntiles = (nmb * 32 + kThreads - 1) / kThreads;
   if (grid > ntiles) grid = ntiles;

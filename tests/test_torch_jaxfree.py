@@ -3,8 +3,9 @@
 A site-less interpreter (``python -S``, ``sys.path`` built by hand as the
 ``sat`` launcher builds it) runs the port's CLI on a synthetic database
 through the plain PyTorch scan and through the native host machine, and
-reports whether jax was imported; a source scan checks every file of the
-package and ``chip_smoke.py``.
+reports whether jax was imported, for exact search and for ``-k 1`` (the
+gated seed scan and the native extension); a source scan checks every
+file of the package and ``chip_smoke.py``.
 """
 
 import os
@@ -38,8 +39,9 @@ runpy.run_module("sequence_alignment_tools_tpu_torch", run_name="__main__",
 
 
 @pytest.mark.parametrize("host_scan,flags", [("0", ["-r", "-c"]),
-                                             ("1", ["-r"])],
-                         ids=["torch-blocks", "host-machine"])
+                                             ("1", ["-r"]),
+                                             ("0", ["-k", "1", "-r"])],
+                         ids=["torch-blocks", "host-machine", "gated-k1"])
 def test_sitless_cli_never_imports_jax(tmp_path, capsys, monkeypatch,
                                        host_scan, flags):
     fasta = str(tmp_path / "db.fasta")

@@ -2,7 +2,9 @@
 
 Both run in-process on the same synthetic FASTA with ``SAT_HOST_SCAN=0``:
 the JAX CLI through its XLA block path, the port through its fused route
-(plain PyTorch versions on the CPU)."""
+(plain PyTorch versions on the CPU).  The ``-k``/``-K`` cases run with
+``SAT_HOST_SCAN=0`` (the port's gated seed scan) and ``=1`` (the native
+host machine)."""
 
 import pytest
 import torch
@@ -22,6 +24,9 @@ FMT = (r"%h\t%H\t%f\t%s\t%e\t%5\t%3\t%S\t%E\t%i\t%d\t%p\t%P\t%q\t%Q\t%t"
 WORDS = [[], ["-r"], ["-c"], ["-r", "-c"], ["-r", "-c", "-a"],
          ["-r", "-c", "-M", "2"], ["-r", "-A", FMT]]
 FASTA = [["-r"], ["-c"], ["-r", "-c", "-a"], ["-A", FMT]]
+# the pigeonhole engines: halves (-k 1, -K 1) and bases (-3 8)
+EDITS = [["-k", "1", "-r"], ["-k", "1", "-r", "-c"], ["-K", "1", "-r"],
+         ["-k", "1", "-r", "-3", "8"], ["-k", "1", "-r", "-A", FMT]]
 
 
 @pytest.fixture(scope="module")
@@ -31,6 +36,12 @@ def inputs(tmp_path_factory):
     planted += [(15000 + 2500 * i, reverse_comp(p))
                 for i, p in enumerate(PATS)]
     planted += [(30000 + 700 * i, PATS[0]) for i in range(3)]
+    # one substitution, one deletion, one insertion
+    planted += [(36000 + 900 * i, p[:6] + "ACGT"[(2 + i) % 4] + p[7:])
+                for i, p in enumerate(PATS)]
+    planted += [(40000 + 900 * i, p[:5] + p[6:]) for i, p in enumerate(PATS)]
+    planted += [(44000 + 700 * i, reverse_comp(p[:7] + "T" + p[7:]))
+                for i, p in enumerate(PATS[:3])]
     fasta = str(d / "db.fasta")
     make_synthetic_fasta(fasta, n_entries=3, total=48_000, planted=planted,
                          seed=21)
@@ -42,8 +53,8 @@ def inputs(tmp_path_factory):
     return fasta, str(words), str(fa)
 
 
-def _both(argv, capsys, monkeypatch):
-    monkeypatch.setenv("SAT_HOST_SCAN", "0")
+def _both(argv, capsys, monkeypatch, host_scan="0"):
+    monkeypatch.setenv("SAT_HOST_SCAN", host_scan)
     monkeypatch.setenv("SAT_MESH", "0")
     monkeypatch.setenv("SAT_DEVICE", "cpu")
     capsys.readouterr()
@@ -70,7 +81,17 @@ def test_parity_fasta_patterns(inputs, flags, capsys, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("flags", [["-k", "1"], ["-K", "2"], ["-T"]])
+@pytest.mark.parametrize("host_scan", ["0", "1"])
+@pytest.mark.parametrize("flags", EDITS, ids=lambda f: " ".join(f))
+def test_parity_edit_options(inputs, flags, host_scan, capsys, monkeypatch):
+    fasta, words, _ = inputs
+    want, got = _both(["-i", fasta, "-P", words] + flags, capsys,
+                      monkeypatch, host_scan)
+    assert want.count("\n") >= 2 * len(PATS)
+    assert got == want
+
+
+@pytest.mark.parametrize("flags", [["-K", "2"], ["-T"], ["-k", "2", "-r"]])
 def test_unported_options_exit(inputs, flags, capsys, monkeypatch):
     fasta, words, _ = inputs
     monkeypatch.setenv("SAT_DEVICE", "cpu")
