@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version, then drives the port's main paths (exact and k = 1
-primer_match, both strands) at full size and checks their output:
+plain PyTorch version, then drives the port's main paths (exact, k = 1,
+k = 2 and ``-K 2`` primer_match, both strands) at full size and checks
+their output:
 
 1. card: name and power limit, kernel build time;
 2. kernel against plain: ``scan_occupancy`` on the card equals
@@ -32,15 +33,34 @@ primer_match, both strands) at full size and checks their output:
    a ``torch.profiler`` breakdown;
 7. CLI: ``primer_match -r -c``, ``-r``, ``-k 1 -r -c``, ``-K 1 -r`` and
    ``-k 1 -r -3 8`` (bases) through the device route and the host route
-   print the same bytes, and the device run launches the kernels.
+   print the same bytes, and the device run launches the kernels;
+8. the k-edit kernels against plain at 2^22 positions, on text dense with
+   EOS and planted 1- and 2-edit variants: ``myers_pairs`` against
+   ``myers_pairs_ref`` (the bench primers, packed two to a word, k = 1, 2,
+   3) and ``sellers_scan`` against ``sellers_ref`` (100 patterns of 60 to
+   100 bases at k = 1, 2, 4, without indels, and degenerate primers over
+   an IUPAC database under ``-w``), both also at cap 1 (the overflow);
+9. the k = 2 main path: ``PrimerMatchModel(k=2, indels=True)`` (the
+   filter engine, Myers route) over the resident 2^28 database, engine
+   hits equal to the host route's (the native Sellers rows), every exact,
+   1- and 2-edit plant found; ``engine_hits_stream`` throughput with the
+   host tail, the tail alone and a ``torch.profiler`` breakdown; then
+   ``-K 2`` (the poisoned k-mismatch scan) against the host route;
+10. the Sellers route: 24 primers of 32 to 40 bases with their reverse
+    complements (P = 48, Lmax = 40), k = 2, over the first 2^26 positions
+    with the primers planted; engine hits equal to the host route's (the
+    native Sellers rows over pattern groups that fit the native machine);
+11. CLI: ``-k 2 -r -c``, ``-k 2 -r``, ``-K 2 -r`` and the long primers with
+    ``-k 2 -r``, device bytes equal to host bytes.
 
 Every phase raises on a mismatch.  The line before the last is a JSON
-object with each kernel's launches on the main path, error and times; the
-last line is ``{"ok": true, "device": {...}}``.  Needs a CUDA device:
-without one it exits 1 and prints no result.
+object with each kernel's launches on its main path, error, times and
+bound; the last line is ``{"ok": true, "device": {...}}``.  Needs a CUDA
+device: without one it exits 1 and prints no result.
 """
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -65,10 +85,25 @@ EOS = 4
 MAIN_N = 1 << 28          # about one human chromosome, resident whole
 BLOCK_N = 1 << 24         # the serving block and the kernel check size
 ENTRY = 2_000_000         # bases per database entry, as bench.py's corpus
+KEDIT_N = 1 << 22         # the k-edit kernel check size
+SELLERS_N = 1 << 26       # the Sellers-route configuration's database
+# 24 long primers (32 to 40 bases): the Myers kernel takes no field past
+# 31 bases, so the filter engine takes the Sellers kernel for them
+_LRNG = np.random.default_rng(SEED + 7)
+LONG = ["".join("ACGT"[c] for c in _LRNG.integers(0, 4, size=ln))
+        for ln in _LRNG.integers(32, 41, size=24)]
+# the H100 SXM data sheet's peaks: HBM bytes/s, and the float32 rate
+# outside the tensor cores, the sheet's entry nearest to the 32-bit
+# integer work of these kernels
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+
+
+T0 = time.perf_counter()
 
 
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f} s]", *a, flush=True)
 
 
 def cuda_ms(fn, reps=10):
@@ -88,6 +123,29 @@ def cuda_ms(fn, reps=10):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(result, milliseconds) of one call of ``fn()`` on the card (CUDA
+    events, no warm-up)."""
+    import torch
+
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def bound(nbytes, ops):
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``ops`` integer operations at its published peaks."""
+    b_ms = nbytes / PEAK_BYTES * 1e3
+    o_ms = ops / PEAK_OPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def edit(rng, s, kinds):
@@ -120,8 +178,8 @@ def make_db(n, seed):
     boundary (next to EOS) and a primer split by the second boundary's
     EOS.  Returns (db, planted exact copies, variants), a variant being
     (start, primer strand, its text, number of edits)."""
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
+    from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
 
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, size=n, dtype=np.uint8)
@@ -196,7 +254,7 @@ def iupac_db(n, seed):
     """An IUPAC database (15 codes: ACGT with 3% ambiguity codes) in two
     entries, and 8 degenerate primers drawn from it plus a heavy-wildcard
     one, for a -w scan."""
-    from sequence_alignment_tools_tpu.io.database import SeqDB
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
 
     rng = np.random.default_rng(seed)
     table = np.frombuffer(b"ACGTRYSWKMBDHVN", dtype=np.uint8)
@@ -213,7 +271,7 @@ def iupac_db(n, seed):
 def device_route_vs_host(name, tables, codes, dev):
     """One scan through the port's device route (host rung off) against
     the native host shift-and; fails unless the filter kernel ran."""
-    from sequence_alignment_tools_tpu.ops.host_scan import HostShiftAnd
+    from sequence_alignment_tools_tpu_torch.ops.host_scan import HostShiftAnd
     from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
     from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
         scan_occupancy,
@@ -248,8 +306,13 @@ def profile(label, fn, reps):
 
     fn()
     torch.cuda.synchronize()
+    # keep every event of the window (without it, torch may drop the
+    # events of earlier cycles from key_averages)
+    keep = ({"acc_events": True}
+            if "acc_events" in inspect.signature(tprofile).parameters
+            else {})
     with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+                              ProfilerActivity.CUDA], **keep) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -286,7 +349,7 @@ def survivor_set(row, cap):
 def gate_setup(db, pats, k, indels, dev, node=0, tplen=0, rev_comp=True):
     """(engine, seed DeviceTables, GateTables on the card) of the port's
     pigeonhole engine for ``pats`` over ``db``."""
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
+    from sequence_alignment_tools_tpu_torch.io.patterns import build_pattern_set
     from sequence_alignment_tools_tpu_torch.models.primer_match import (
         PrimerMatchModel,
     )
@@ -350,7 +413,7 @@ def write_bench_corpus(path):
     """bench.py's 16 M-base corpus layout (8 entries of 2,000,000 random
     bases, 70-character lines, seed 42), with each primer planted once
     exact and its reverse complement once with one substitution."""
-    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+    from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
 
     rng = np.random.default_rng(42)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -364,9 +427,141 @@ def write_bench_corpus(path):
                                edit(rng, reverse_comp(PATS[i]), ("sub",)))):
                     seq[at : at + len(v)] = np.frombuffer(v.encode(),
                                                           np.uint8)
+            for i in range(e, len(LONG), 8):
+                for at, v in ((600_000 + 9_973 * i, LONG[i]),
+                              (1_600_000 + 9_973 * i,
+                               edit(rng, reverse_comp(LONG[i]),
+                                    ("sub", "ins")))):
+                    seq[at : at + len(v)] = np.frombuffer(v.encode(),
+                                                          np.uint8)
             s = seq.tobytes().decode()
             for i in range(0, ENTRY, 70):
                 f.write(s[i : i + 70] + "\n")
+
+
+def row_set(row, cap, width):
+    """(true count, set of kept tuples) of a ``[count, col 0 (cap), ...,
+    col width-1 (cap)]`` row."""
+    row = row.cpu().numpy().astype(np.int64)
+    m = min(int(row[0]), cap)
+    cols = [row[1 + i * cap : 1 + i * cap + m].tolist()
+            for i in range(width)]
+    return int(row[0]), set(zip(*cols))
+
+
+def check_kedit(cases):
+    """Phase 8: each k-edit kernel on the card against its plain version
+    on the card; the kept tuple sets must be equal (with a cap below the
+    count: the true counts equal and the kept tuples among the plain
+    ones).  Returns the largest difference seen per kernel: count
+    difference plus tuples in one set only."""
+    import torch
+
+    from sequence_alignment_tools_tpu_torch.ops.cuda.myers import (
+        myers_pairs,
+        myers_pairs_ref,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
+        sellers_ref,
+        sellers_scan,
+    )
+
+    worst = {"myers_pairs": 0, "sellers_scan": 0}
+    full = 1 << 21
+    for name, kind, codes_dev, n, tabs, eos, k, indels, cap in cases:
+        if kind == "myers_pairs":
+            got = myers_pairs(codes_dev, n, tabs, eos, k, cap)
+            want = myers_pairs_ref(codes_dev, n, tabs, eos, k, full)
+            width = 2
+        else:
+            got = sellers_scan(codes_dev, n, tabs, eos, k, indels, cap)
+            want = sellers_ref(codes_dev, n, tabs, eos, k, indels, full)
+            width = 3
+        torch.cuda.synchronize()
+        gc, gset = row_set(got, cap, width)
+        wc, wset = row_set(want, full, width)
+        if cap >= wc:
+            err = abs(gc - wc) + len(wset ^ gset)
+        else:
+            err = abs(gc - wc) + len(gset - wset)
+        worst[kind] = max(worst[kind], err)
+        log(f"{kind} check {name}: n={n} k={k} hits={wc} (cap {cap}) "
+            f"err={err}")
+        if err or wc == 0:
+            raise AssertionError(f"{kind} differs from plain: {name}")
+    return worst
+
+
+def split_host_pairs(tables, k, codes):
+    """The native Sellers rows (``HostSellers``) over groups of patterns
+    that each fit the native machine (at most 24 x 64 pattern bits), the
+    candidate sets merged: the host route for a pattern set too wide for
+    one machine.  Returns (ends, pids) like ``SellersScanner.host_pairs``."""
+    from sequence_alignment_tools_tpu_torch.ops.host_scan import HostSellers
+    from sequence_alignment_tools_tpu_torch.ops.tables import PatternTables
+
+    groups, cur, bits = [], [], 0
+    for p in range(tables.P):
+        ln = int(tables.lengths[p])
+        if cur and bits + ln > 24 * 64:
+            groups.append(cur)
+            cur, bits = [], 0
+        cur.append(p)
+        bits += ln
+    groups.append(cur)
+    ends_l, pids_l = [], []
+    for g in groups:
+        idx = np.asarray(g)
+        sub = PatternTables(match=tables.match[idx],
+                            lengths=tables.lengths[idx],
+                            pat_codes=tables.pat_codes[idx],
+                            Lmax=tables.Lmax, alpha=tables.alpha,
+                            eos_code=tables.eos_code,
+                            code_chars=tables.code_chars)
+        hs = HostSellers(sub, k)
+        if not hs.available():
+            raise RuntimeError("native Sellers rows unavailable")
+        e, pl, _d = hs.pairs(np.asarray(codes))
+        ends_l.append(e)
+        pids_l.append(idx[pl])
+    return np.concatenate(ends_l), np.concatenate(pids_l).astype(np.int64)
+
+
+@contextlib.contextmanager
+def split_host_route():
+    """The filter engine's host route through :func:`split_host_pairs`
+    for the scans the CLI's host run makes."""
+    from sequence_alignment_tools_tpu_torch.ops.sellers import SellersScanner
+
+    saved = (SellersScanner._host_eligible, SellersScanner.host_pairs)
+    SellersScanner._host_eligible = lambda self, n: True
+    SellersScanner.host_pairs = lambda self, codes: split_host_pairs(
+        self.tables, self.k, codes)
+    try:
+        yield
+    finally:
+        SellersScanner._host_eligible, SellersScanner.host_pairs = saved
+
+
+def plant_variants(codes, pats, starts, rng, offset):
+    """Plant each of ``pats`` and its reverse complement exact, with one
+    edit and with two edits, spread over the entries; returns the
+    planted (start, primer strand, text, edits)."""
+    from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
+
+    out = []
+    slot = 0
+    for p in pats:
+        for s in (p, reverse_comp(p)):
+            for kinds in ((), ("sub",), ("del",), ("sub", "ins")):
+                v = edit(rng, s, kinds) if kinds else s
+                e = slot % (len(starts) - 1)
+                at = int(starts[e]) + offset + 13_331 * (slot // 8)
+                codes[at : at + len(v)] = [TABLE.index(c.encode())
+                                           for c in v]
+                out.append((at, s, v, len(kinds)))
+                slot += 1
+    return out
 
 
 def run_cli(argv):
@@ -385,9 +580,10 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
         return 1
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.ops.host_scan import HostShiftAnd
-    from sequence_alignment_tools_tpu.ops.tables import build_tables
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
+    from sequence_alignment_tools_tpu_torch.io.patterns import build_pattern_set
+    from sequence_alignment_tools_tpu_torch.ops.host_scan import HostShiftAnd
+    from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
     from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
     from sequence_alignment_tools_tpu_torch.ops.cuda import build
     from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
@@ -612,6 +808,7 @@ def main():
         row = gated_hits(codes_dev, n, dt_h, gt_h, EOS, True, n // 32,
                          1 << 16)
         timings[label] = (g_ms, r_ms)
+        gate_counts = (int(row[0]), int(row[1]))
         log(f"seed_gate at n={label}, halves k=1 (40 seeds) on {smi}: "
             f"kernel {g_ms:.4f} ms, plain {r_ms:.4f} ms (CUDA events, "
             f"median); {int(row[0])} of {n // 32} microblocks are "
@@ -676,41 +873,287 @@ def main():
             lambda: list(m_dev.engine_hits()), 3)
     del m_host
 
-    # 7. CLI: device route and host route print the same bytes
+    # 7. the k-edit kernels against plain on EOS-dense text
+    from sequence_alignment_tools_tpu_torch.ops.cuda.myers import (
+        myers_pairs,
+        myers_pairs_ref,
+        myers_tables,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
+        sellers_ref,
+        sellers_scan,
+        sellers_tables,
+    )
+
+    kr = np.random.default_rng(SEED + 3)
+    dense = codes[:KEDIT_N].copy()
+    dense[kr.integers(0, KEDIT_N, size=KEDIT_N // 3000)] = EOS
+    dense[3_000_000 : 3_004_000 : 11] = EOS  # entries shorter than a halo
+    kdb = SeqDB(codes=dense, table=TABLE, entry_starts=np.array([0]),
+                entry_lengths=np.array([KEDIT_N]), headers=["dense"])
+    ktext = "".join("ACGT"[c] if c < 4 else "A" for c in dense[:400_000])
+    sel_pats = [edit(kr, ktext[3_900 * i : 3_900 * i + int(ln)],
+                     ("sub", "del")[: i % 3])
+                for i, ln in enumerate(kr.integers(60, 101, size=50))]
+    kdev = torch.from_numpy(dense).to(dev)
+    mt_b = myers_tables(build_tables(build_pattern_set(PATS, rev_comp=True),
+                                     kdb, wc=False, textn=False)).to(dev)
+    st_l = sellers_tables(build_tables(
+        build_pattern_set(sel_pats, rev_comp=True), kdb, wc=False,
+        textn=False)).to(dev)
+    st_w = sellers_tables(build_tables(
+        build_pattern_set(wpats[:6] + ["ACGRYTNNSWKTACGTTGCAAC"],
+                          rev_comp=True), wdb, wc=True, textn=False)).to(dev)
+    weos = int(wdb.eos_code)
+    kcases = [(f"bench primers k={k} ({mt_b.nw} packed words)",
+               "myers_pairs", kdev, KEDIT_N, mt_b, EOS, k, True, 1 << 20)
+              for k in (1, 2, 3)]
+    kcases.append(("bench primers k=3, cap 1", "myers_pairs", kdev, KEDIT_N,
+                   mt_b, EOS, 3, True, 1))
+    kcases += [(f"P={st_l.P} Lmax={st_l.Lmax} k={k}", "sellers_scan", kdev,
+                KEDIT_N, st_l, EOS, k, True, 1 << 20) for k in (1, 2, 4)]
+    kcases += [
+        (f"P={st_l.P} k=2 without indels", "sellers_scan", kdev, KEDIT_N,
+         st_l, EOS, 2, False, 1 << 20),
+        ("IUPAC -w, k=2", "sellers_scan", wdev, len(wdb.codes), st_w, weos,
+         2, True, 1 << 20),
+        (f"P={st_l.P} k=2, cap 1", "sellers_scan", kdev, KEDIT_N, st_l, EOS,
+         2, True, 1)]
+    kedit_err = check_kedit(kcases)
+    del kdev
+
+    # 8. the k = 2 main path: the filter engine (Myers route) at 2^28
+    m2 = PrimerMatchModel(db, ps1, k=2, indels=True, device=dev)
+    m2.use_host = False
+    m2h = PrimerMatchModel(db, ps1, k=2, indels=True, device=dev)
+    m2h.use_host = True
+    if m2.engine != "filter":
+        raise AssertionError(f"k=2 main path took engine {m2.engine}")
+    sc2 = m2._filter_ctx()[0]
+    if not sc2.myers_available(MAIN_N):
+        raise AssertionError("k=2 main path: the Myers kernel declined")
+    t0 = time.perf_counter()
+    want2 = list(m2h.engine_hits())
+    log(f"k=2 host route (native Sellers rows, cluster verify): "
+        f"{len(want2)} engine hits in {time.perf_counter() - t0:.3f} s")
+    myers_pairs.launches = sellers_scan.launches = 0
+    got2 = list(m2.engine_hits())
+    k2_launches = {"myers_pairs": myers_pairs.launches,
+                   "sellers_scan": sellers_scan.launches}
+    if k2_launches["myers_pairs"] < 1:
+        raise AssertionError(f"k=2 main path skipped Myers: {k2_launches}")
+    if got2 != want2 or not got2:
+        raise AssertionError(f"k=2 device route differs from host route: "
+                             f"{len(got2)} vs {len(want2)} engine hits")
+    ends_of = {}
+    for end, pid, _v in got2:
+        ends_of.setdefault(pid, []).append(end)
+    covered = [(at, s, s) for at, s in planted] + [
+        (at, s, v) for at, s, v, ne in variants if ne <= 2]
+    for at, s, v in covered:
+        if not any(abs(e - (at + len(v))) <= 2
+                   for e in ends_of.get(pid_of[s], ())):
+            raise AssertionError(f"k=2: planted {v} ({s}) at {at} not found")
+    log(f"k=2 main path: {len(got2)} engine hits == host route, all "
+        f"{len(covered)} exact, 1- and 2-edit plants found, launches "
+        f"{k2_launches}")
+    try:
+        list(m2.engine_hits_stream(2))  # starts the tail processes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs = list(m2.engine_hits_stream(5))
+        s_k2 = time.perf_counter() - t0
+    finally:
+        m2.close()
+    if runs != [got2] * 5:
+        raise AssertionError("k=2 engine_hits_stream changed its hits")
+    log(f"k=2 engine_hits_stream, n=2^28 resident, P=20 on {smi}: "
+        f"{s_k2 / 5:.6f} s per run, {5 * MAIN_N / s_k2 / 1e9:.3f} Gbases/s "
+        f"(host clock, 5 runs, host tail in worker processes)")
+    sends, spids = sc2.scan_pairs(codes)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        list(m2._filter_emit(sends, spids))
+    log(f"k=2 host tail (clusters + native verify) of {len(sends)} "
+        f"candidates: {(time.perf_counter() - t0) / 3 * 1e3:.3f} ms per run")
+    profile("k=2 main path, engine_hits, n=2^28 resident, P=20",
+            lambda: list(m2.engine_hits()), 3)
+    main_dev = sc2._device_form(codes)
+    mt2 = sc2._myers_t()
+    my_cap = sc2._cap("myers", MAIN_N)
+    my_row = myers_pairs(main_dev, MAIN_N, mt2, EOS, 2, my_cap)
+    my_ref, my_plain = timed(lambda: myers_pairs_ref(main_dev, MAIN_N, mt2,
+                                                     EOS, 2, my_cap))
+    if row_set(my_row, my_cap, 2) != row_set(my_ref, my_cap, 2):
+        raise AssertionError("myers_pairs differs from plain at 2^28")
+    my_ms = cuda_ms(lambda: myers_pairs(main_dev, MAIN_N, mt2, EOS, 2,
+                                        my_cap), reps=10)
+    my_pairs_n = int(my_row[0])
+    log(f"myers_pairs at n=2^28, P=20 ({mt2.nw} words), k=2 on {smi}: "
+        f"kernel {my_ms:.4f} ms, plain {my_plain:.4f} ms (CUDA events; "
+        f"equal; {my_pairs_n} pairs)")
+    del main_dev, m2h
+
+    # 8b. -K 2: the poisoned k-mismatch scan at 2^28
+    mK = PrimerMatchModel(db, ps1, k=2, indels=False, device=dev)
+    mK.use_host = False
+    mKh = PrimerMatchModel(db, ps1, k=2, indels=False, device=dev)
+    mKh.use_host = True
+    wantK = list(mKh.engine_hits())
+    scan_occupancy.launches = 0
+    gotK = list(mK.engine_hits())
+    if scan_occupancy.launches < 1:
+        raise AssertionError("-K 2 main path never launched scan_occupancy")
+    if gotK != wantK or not gotK:
+        raise AssertionError(f"-K 2 device route differs from host route: "
+                             f"{len(gotK)} vs {len(wantK)} engine hits")
+    t0 = time.perf_counter()
+    runs = list(mK.engine_hits_stream(3))
+    s_K2 = time.perf_counter() - t0
+    if runs != [gotK] * 3:
+        raise AssertionError("-K 2 engine_hits_stream changed its hits")
+    log(f"-K 2 main path: {len(gotK)} engine hits == host route (native "
+        f"shift-and), engine_hits_stream {s_K2 / 3:.6f} s per run, "
+        f"{3 * MAIN_N / s_K2 / 1e9:.3f} Gbases/s on {smi}")
+    profile("-K 2 main path, engine_hits, n=2^28 resident, P=20",
+            lambda: list(mK.engine_hits()), 3)
+    del mK, mKh
+
+    # 9. the Sellers route: long primers over the first 2^26 positions
+    sub = codes[:SELLERS_N].copy()
+    sub_eos = np.arange(0, SELLERS_N, ENTRY + 1)
+    sub_starts = sub_eos + 1
+    long_plants = plant_variants(sub, LONG, sub_starts,
+                                 np.random.default_rng(SEED + 4), 300_000)
+    sdb = SeqDB(codes=sub, table=TABLE, entry_starts=sub_starts,
+                entry_lengths=np.minimum(ENTRY, SELLERS_N - sub_starts),
+                headers=[f"chr{i} synthetic entry {i}"
+                         for i in range(len(sub_starts))])
+    psl = build_pattern_set(LONG, rev_comp=True)
+    ml = PrimerMatchModel(sdb, psl, k=2, indels=True, device=dev)
+    ml.use_host = False
+    scl = ml._filter_ctx()[0]
+    if ml.engine != "filter" or scl.myers_available(SELLERS_N) \
+            or not scl.kernel_available(SELLERS_N):
+        raise AssertionError("long primers did not take the Sellers route")
+    t0 = time.perf_counter()
+    hends, hpids = split_host_pairs(scl.tables, 2, sub)
+    wantl = list(ml._filter_emit(hends, hpids))
+    log(f"Sellers route host reference (native Sellers rows over pattern "
+        f"groups): {len(hends)} candidates, {len(wantl)} engine hits in "
+        f"{time.perf_counter() - t0:.3f} s")
+    myers_pairs.launches = sellers_scan.launches = 0
+    gotl = list(ml.engine_hits())
+    sel_launches = {"myers_pairs": myers_pairs.launches,
+                    "sellers_scan": sellers_scan.launches}
+    if sel_launches["sellers_scan"] < 1:
+        raise AssertionError(f"Sellers route skipped the kernel: "
+                             f"{sel_launches}")
+    if gotl != wantl or not gotl:
+        raise AssertionError(f"Sellers route differs from host route: "
+                             f"{len(gotl)} vs {len(wantl)} engine hits")
+    dends, dpids = scl.scan_pairs(sub)
+    if set(zip(dends.tolist(), dpids.tolist())) != set(
+            zip(hends.tolist(), hpids.tolist())):
+        raise AssertionError("Sellers candidates differ from the host's")
+    lpid = {}
+    for pid in range(psl.n_total, 0, -1):
+        lpid[psl.pattern(pid)] = pid
+    lends = {}
+    for end, pid, _v in gotl:
+        lends.setdefault(pid, []).append(end)
+    for at, s, v, _ne in long_plants:
+        if not any(abs(e - (at + len(v))) <= 2
+                   for e in lends.get(lpid[s], ())):
+            raise AssertionError(f"long primer {v} at {at} not found")
+    log(f"Sellers route: P={psl.n_total}, Lmax={scl.tables.Lmax}, k=2, "
+        f"n=2^26: {len(gotl)} engine hits == host route, all "
+        f"{len(long_plants)} plants found, launches {sel_launches}")
+    sl_dev = scl._device_form(sub)
+    st2 = scl._sellers_t()
+    sel_cap = scl._cap("sellers", SELLERS_N)
+    sel_row = sellers_scan(sl_dev, SELLERS_N, st2, EOS, 2, True, sel_cap)
+    sel_ref, sel_plain = timed(lambda: sellers_ref(
+        sl_dev, SELLERS_N, st2, EOS, 2, True, sel_cap))
+    if row_set(sel_row, sel_cap, 3) != row_set(sel_ref, sel_cap, 3):
+        raise AssertionError("sellers_scan differs from plain at 2^26")
+    sel_ms = cuda_ms(lambda: sellers_scan(sl_dev, SELLERS_N, st2, EOS, 2,
+                                          True, sel_cap), reps=5)
+    sel_hits_n = int(sel_row[0])
+    log(f"sellers_scan at n=2^26, P=48, Lmax={st2.Lmax}, k=2 on {smi}: "
+        f"kernel {sel_ms:.4f} ms, plain {sel_plain:.4f} ms (CUDA events; "
+        f"equal; {sel_hits_n} triples)")
+    del sl_dev, ml
+
+    # 10. CLI: device route and host route print the same bytes
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "corpus.fasta")
         pfile = os.path.join(tmp, "primers.txt")
+        lfile = os.path.join(tmp, "long_primers.txt")
         write_bench_corpus(fasta)
         with open(pfile, "w") as f:
             f.write("\n".join(PATS) + "\n")
-        for flags in (["-r", "-c"], ["-r"], ["-k", "1", "-r", "-c"],
-                      ["-K", "1", "-r"], ["-k", "1", "-r", "-3", "8"]):
-            argv = ["-i", fasta, "-P", pfile] + flags
+        with open(lfile, "w") as f:
+            f.write("\n".join(LONG) + "\n")
+        pm = ["scan_occupancy"]
+        for pats_file, flags, need in (
+                (pfile, ["-r", "-c"], pm), (pfile, ["-r"], pm),
+                (pfile, ["-k", "1", "-r", "-c"], pm + ["seed_gate"]),
+                (pfile, ["-K", "1", "-r"], pm + ["seed_gate"]),
+                (pfile, ["-k", "1", "-r", "-3", "8"], pm + ["seed_gate"]),
+                (pfile, ["-k", "2", "-r", "-c"], ["myers_pairs"]),
+                (pfile, ["-k", "2", "-r"], ["myers_pairs"]),
+                (pfile, ["-K", "2", "-r"], pm),
+                (lfile, ["-k", "2", "-r"], ["sellers_scan"])):
+            argv = ["-i", fasta, "-P", pats_file] + flags
             os.environ["SAT_HOST_SCAN"] = "0"
             scan_occupancy.launches = seed_gate.launches = 0
+            myers_pairs.launches = sellers_scan.launches = 0
             t0 = time.perf_counter()
             out_dev = run_cli(argv)
             s_cli = time.perf_counter() - t0
             cli_launches = {"scan_occupancy": scan_occupancy.launches,
-                            "seed_gate": seed_gate.launches}
+                            "seed_gate": seed_gate.launches,
+                            "myers_pairs": myers_pairs.launches,
+                            "sellers_scan": sellers_scan.launches}
             del os.environ["SAT_HOST_SCAN"]
-            out_host = run_cli(argv)
-            need = ["scan_occupancy"] + (
-                ["seed_gate"] if "-k" in flags or "-K" in flags else [])
+            # the long primers exceed one native Sellers machine: the
+            # host run takes the machines over pattern groups
+            with (split_host_route() if pats_file == lfile
+                  else contextlib.nullcontext()):
+                out_host = run_cli(argv)
             if min(cli_launches[kname] for kname in need) < 1:
                 raise AssertionError(f"CLI {flags}: the device run skipped "
                                      f"a kernel: {cli_launches}")
             if out_dev != out_host or not out_dev:
                 raise AssertionError(f"CLI {flags}: device and host outputs "
                                      "differ")
-            log(f"CLI primer_match {' '.join(flags)}: {len(out_dev)} bytes, "
-                f"{out_dev.count(chr(10))} lines, device == host, device "
-                f"run {s_cli:.3f} s, launches {cli_launches}")
+            log(f"CLI primer_match {' '.join(flags)}"
+                f"{' (long primers)' if pats_file == lfile else ''}: "
+                f"{len(out_dev)} bytes, {out_dev.count(chr(10))} lines, "
+                f"device == host, device run {s_cli:.3f} s, launches "
+                f"{cli_launches}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"
     tpu = "sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py"
-    print(json.dumps({"kernels": [{
+    # bounds: each input byte read once, each output byte written once;
+    # operations as this run's data needs them, at least: the filter one
+    # lookup and one compare per window start and pattern (P = 20)
+    nmb24 = BLOCK_N // 32
+    occ_bound = bound(BLOCK_N + nmb24, BLOCK_N * 2 * len(PATS) * 2)
+    cand28, surv28 = gate_counts
+    lmax_s = int(dt_h.weights16.shape[0])
+    gate_bound = bound(cand28 * (32 + lmax_s - 1 + 8) + 8 * surv28,
+                       cand28 * 32 * int(dt_h.lengths.numel()) * 2
+                       + surv28 * gt_h.Lg * (2 * gt_h.band + 1) * 4)
+    # Myers: about 17 word operations per character and word
+    my_bound = bound(MAIN_N + 8 * my_pairs_n, 17 * MAIN_N * mt2.nw)
+    # Sellers: Ukkonen's cutoff visits at least k + 1 cells per character
+    # and pattern, about 5 operations each
+    sel_bound = bound(SELLERS_N + 12 * sel_hits_n,
+                      5 * 3 * SELLERS_N * st2.P)
+    kernels = [{
         "name": "scan_occupancy",
         "route": "cuda",
         "source": src + "scan_filter.cu",
@@ -719,6 +1162,9 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": occ_bound[0],
+        "bound_by": occ_bound[1],
+        "library_ms": None,
     }, {
         "name": "seed_gate",
         "route": "cuda",
@@ -728,7 +1174,36 @@ def main():
         "max_abs_err": gate_err,
         "ms": timings["2^28"][0],
         "plain_ms": timings["2^28"][1],
-    }]}))
+        "bound_ms": gate_bound[0],
+        "bound_by": gate_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "myers_pairs",
+        "route": "cuda",
+        "source": src + "myers.cu",
+        "replaces": "sequence_alignment_tools_tpu/ops/pallas/"
+                    "myers_kernel.py:74",
+        "launches": k2_launches["myers_pairs"],
+        "max_abs_err": kedit_err["myers_pairs"],
+        "ms": my_ms,
+        "plain_ms": my_plain,
+        "bound_ms": my_bound[0],
+        "bound_by": my_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "sellers_scan",
+        "route": "cuda",
+        "source": src + "sellers.cu",
+        "replaces": "sequence_alignment_tools_tpu/ops/sellers.py:149",
+        "launches": sel_launches["sellers_scan"],
+        "max_abs_err": kedit_err["sellers_scan"],
+        "ms": sel_ms,
+        "plain_ms": sel_plain,
+        "bound_ms": sel_bound[0],
+        "bound_by": sel_bound[1],
+        "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,35 +1,217 @@
 """primer_match CLI on the port's model.
 
 Port of ``sequence_alignment_tools_tpu/apps/primer_match.py``: the same
-options (``parse_args``, ``load_patterns`` and ``USAGE`` are imported
-from it), the same verbose protocol and the same output bytes, for exact
-search and for ``-k``/``-K`` through the pigeonhole engines (halves,
-bases).  ``-T`` (translated search) and the engines the model does not
-port yet (filter, hash, gs) exit 1 with a message naming their ROADMAP
-item.
+options (``USAGE``, ``parse_args`` and ``load_patterns`` are the port's
+copies of the JAX app's), the same verbose protocol and the same output
+bytes, for exact search, for ``-k``/``-K`` through the pigeonhole engines
+(halves, bases) and for the k-edit and k-mismatch filter engine
+(``-k 2``, ``-K 2``).  ``-T`` (translated search) and the engines the
+model does not port yet (hash, gs) exit 1 with a message naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import getopt
 import sys
 
-from sequence_alignment_tools_tpu.apps.primer_match import (  # noqa: F401
-    USAGE,
-    load_patterns,
-    parse_args,
-)
-from sequence_alignment_tools_tpu.io.compress import load_db
-from sequence_alignment_tools_tpu.io.patterns import (
+from ..io.compress import load_db
+from ..io.patterns import (
     STSEntry,
     build_pattern_set,
+    read_pattern_fasta,
+    read_pattern_words,
+    read_sts,
 )
-from sequence_alignment_tools_tpu.utils.format import (
+from ..models.primer_match import (
+    PrimerMatchModel,
+    db_pick_report,
+    select_report,
+)
+from ..utils.format import (
+    DEFAULT_ALIGN_FORMAT,
+    DEFAULT_COUNT_FORMAT,
     AlignRecord,
     alignformat,
     countformat,
 )
+from ..utils.log import ProgressReporter, timestamp
 
-from ..models.primer_match import PrimerMatchModel
+USAGE = """Usage: primer_match [options]
+
+Options:
+  -i <sequence-database> Input sequence database. Required.
+  -p <sequences>         Primer sequences, separated by whitespace.
+  -P <sequence-file>     Primer sequences, separated by whitespace.
+  -F <sequence-file>     Primer sequences in FASTA format.
+  -S <sequence-file>     Primer sequences in UniSTS format.
+  -o <output-file>       Output file (appends). Defaults to standard out.
+  -k <#-mismatches>      Insertions, deletions and substitutions permitted.
+  -K <#-mismatches>      Substitutions only. At most one of -k and -K.
+  -r                     Match reverse complement of primers too.
+  -s/-e/-5/-3 <#-chars>  Exact-match constraints (~ negates sense).
+  -u                     Uppercase pattern sequences.
+  -w / -W                IUPAC wildcards (W: text N wildcard too).
+  -E <int>               End-of-sequence character. Default '\\n'.
+  -c                     Output counts (only).
+  -a                     Aggregate forward & reverse complement counts.
+  -M <max-count>         Maximum number of occurrences to count.
+  -A <format>            Alignment output format.
+  -C <format>            Counts output format.
+  -R <int>               Alignment report interval.
+  -N <int> / -D <int>    Engine / database strategy hints (auto).
+  -B / -I                I/O hints (accepted for compatibility).
+  -v                     Verbose output.
+  -h                     This help.
+"""
+
+
+def _signed(arg: str) -> int:
+    if arg.startswith("~"):
+        return -int(arg[1:])
+    return int(arg)
+
+
+def parse_args(argv):
+    opts = {
+        "patterns": None,
+        "pattern_mode": "inline",
+        "database": None,
+        "out": None,
+        "k": 0,
+        "indels": True,
+        "dna_mut": False,
+        "rev_comp": False,
+        "ucdict": False,
+        "wc": False,
+        "tn": False,
+        "stlen": 0,
+        "edlen": 0,
+        "fplen": 0,
+        "tplen": 0,
+        "seedlen": 0,
+        "eos_char": ord("\n"),
+        "maxcount": 0,
+        "report_interval": 1000,
+        "alignformat": DEFAULT_ALIGN_FORMAT,
+        "countformat": DEFAULT_COUNT_FORMAT,
+        "alignments": True,
+        "counts": False,
+        "aggregate": False,
+        "translate": False,
+        "verbose": False,
+        "node": 0,
+        "dbind": 0,
+        "memmap": True,
+    }
+    try:
+        parsed, _ = getopt.getopt(
+            argv, "p:i:o:P:F:S:M:k:K:s:e:3:5:x:E:hrucavA:C:R:BN:D:IwWT"
+        )
+    except getopt.GetoptError as e:
+        sys.stderr.write(str(e) + "\n" + USAGE)
+        raise SystemExit(1)
+    for flag, val in parsed:
+        if flag == "-p":
+            opts["patterns"], opts["pattern_mode"] = val, "inline"
+        elif flag == "-P":
+            opts["patterns"], opts["pattern_mode"] = val, "words"
+        elif flag == "-F":
+            opts["patterns"], opts["pattern_mode"] = val, "fasta"
+        elif flag == "-S":
+            opts["patterns"], opts["pattern_mode"] = val, "sts"
+            opts["rev_comp"] = True
+        elif flag == "-i":
+            opts["database"] = val
+        elif flag == "-o":
+            opts["out"] = val
+        elif flag == "-k" or flag == "-K":
+            if val.startswith("."):
+                opts["k"] = int(val[1:])
+                opts["dna_mut"] = True
+            else:
+                opts["k"] = int(val)
+            opts["indels"] = flag == "-k"
+        elif flag == "-r":
+            opts["rev_comp"] = True
+        elif flag == "-u":
+            opts["ucdict"] = True
+        elif flag == "-c":
+            opts["counts"] = True
+            opts["alignments"] = False
+        elif flag == "-a":
+            opts["aggregate"] = True
+        elif flag == "-w":
+            opts["wc"], opts["tn"] = True, False
+        elif flag == "-W":
+            opts["wc"], opts["tn"] = True, True
+        elif flag == "-s":
+            opts["stlen"] = _signed(val)
+        elif flag == "-e":
+            opts["edlen"] = _signed(val)
+        elif flag == "-5":
+            opts["fplen"] = _signed(val)
+        elif flag == "-3":
+            opts["tplen"] = _signed(val)
+        elif flag == "-x":
+            opts["seedlen"] = int(val)
+        elif flag == "-E":
+            opts["eos_char"] = int(val, 0)
+        elif flag == "-M":
+            opts["maxcount"] = int(val)
+        elif flag == "-A":
+            if val:
+                opts["alignformat"] = val
+            opts["alignments"] = True
+        elif flag == "-C":
+            if val:
+                opts["countformat"] = val
+            opts["counts"] = True
+        elif flag == "-R":
+            opts["report_interval"] = int(val)
+        elif flag == "-N":
+            opts["node"] = int(val)
+        elif flag == "-D":
+            opts["dbind"] = int(val)
+        elif flag == "-v":
+            opts["verbose"] = True
+        elif flag == "-B":
+            opts["memmap"] = False  # buffered I/O mode (verbose msg only)
+        elif flag == "-T":
+            opts["translate"] = True
+        elif flag == "-I":
+            pass  # I/O strategy hint
+        elif flag == "-h":
+            sys.stdout.write(USAGE)
+            raise SystemExit(0)
+    # verbose skips the usage check (primer_match.cc:274) — an empty pattern
+    # list then exits 0 after the Release Tag line
+    if (not opts["patterns"] or not opts["database"]) and not opts["verbose"]:
+        sys.stderr.write("No primers and/or no sequence database supplied.\n\n"
+                         + USAGE)
+        raise SystemExit(1)
+    return opts
+
+
+def load_patterns(opts):
+    deflines: list[str] = []
+    sts: list[STSEntry] = []
+    mode = opts["pattern_mode"]
+    if mode == "inline":
+        pats = opts["patterns"].split()
+    elif mode == "words":
+        pats = read_pattern_words(opts["patterns"])
+    elif mode == "fasta":
+        pats, deflines = read_pattern_fasta(opts["patterns"])
+    else:
+        sts = read_sts(opts["patterns"])
+        pats = []
+        for s in sts:
+            pats.append(s.forward_primer)
+            pats.append(s.reverse_primer)
+    return pats, deflines, sts
+
+
 
 
 def _not_ported(why: str):
@@ -40,15 +222,6 @@ def _not_ported(why: str):
 def run(opts, out) -> None:
     """The JAX app's main loop (reference primer_match.cc structure,
     verbose stderr protocol included) over the port's model."""
-    from sequence_alignment_tools_tpu.models.primer_match import (
-        db_pick_report,
-        select_report,
-    )
-    from sequence_alignment_tools_tpu.utils.log import (
-        ProgressReporter,
-        timestamp,
-    )
-
     if opts["translate"]:
         _not_ported("-T (peptide patterns against the 6-frame translation) "
                     "is not ported yet (ROADMAP queue 1 item 9)")

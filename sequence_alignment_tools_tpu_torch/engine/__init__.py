@@ -1,0 +1,2 @@
+"""The port's copy of ``sequence_alignment_tools_tpu/engine/__init__.py``, kept
+byte-compatible with it (the port imports nothing of the JAX package)."""

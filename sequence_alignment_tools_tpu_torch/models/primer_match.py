@@ -1,53 +1,268 @@
-"""The primer_match scan model on the port's scanner.
+"""The primer_match scan model on the port's scanners.
 
 Port of ``sequence_alignment_tools_tpu/models/primer_match.py::PrimerMatchModel``
 with the JAX model's hit semantics and emission order, for the exact
-engines ``exact_kt``, ``exact_sa`` and ``suftree`` and the pigeonhole
-(k > 0) engines ``halves`` (exact_halves) and ``bases`` (exact_bases).
-The pigeonhole engines scan their exact seeds on the device with the
-extension gate (``ConvScanner.scan_gated``) and extend the survivors
-with the JAX package's native batched extension
-(``engine/extend.BatchSeedExtender``, as it is).  The jax-free parts of
-the JAX module (engine selection, the verbose reports, ``Hit``) are
-imported from it as they are.  Not ported yet: ``hash`` and ``gs``
-(ROADMAP queue 1 item 6) and ``filter`` (item 7).
+engines ``exact_kt``, ``exact_sa`` and ``suftree``, the pigeonhole (k > 0)
+engines ``halves`` (exact_halves) and ``bases`` (exact_bases), and the
+filter engine (filter_bitvec: ``-k`` with any k the pigeonhole engines do
+not take, and ``-K``).
+
+- The pigeonhole engines scan their exact seeds on the device with the
+  extension gate (``ConvScanner.scan_gated``) and extend the survivors
+  with the native batched extension (``engine/extend.BatchSeedExtender``).
+- The filter engine takes its k-edit candidates from the Myers or
+  Sellers kernel (``ops/sellers.SellersScanner``), or its k-mismatch
+  candidates from the poisoned scan (``ConvScanner`` under ``-K``), then
+  runs the reference's batch / cluster / verify host tail.
+
+The jax-free parts of the JAX module (engine selection, the verbose
+reports, ``Hit``) are the port's copies.  Not ported yet: ``hash`` and
+``gs`` (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
 
+from collections import deque
+from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
 
-from sequence_alignment_tools_tpu.engine.extend import (
-    BatchSeedExtender,
-    Extender,
-)
-from sequence_alignment_tools_tpu.engine.verify import (
+from ..device import resolve_device
+from ..engine.extend import BatchSeedExtender, Extender
+from ..engine.verify import (
+    Alignment,
     EditDistAligner,
     exact_align,
     exact_wc_align,
 )
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import PatternSet
-from sequence_alignment_tools_tpu.models.primer_match import (  # noqa: F401
-    Hit,
-    SelectionError,
-    db_pick_report,
-    select_engine,
-    select_report,
-)
-from sequence_alignment_tools_tpu.ops.tables import build_tables
-
-from ..device import resolve_device
+from ..io.database import SeqDB
+from ..io.patterns import PatternSet
 from ..ops.conv_scan import ConvScanner
 from ..ops.gate import GateTables
+from ..ops.sellers import SellersScanner
+from ..ops.tables import build_tables
 
 _WAITING = {
     "hash": "ROADMAP queue 1 item 6",
     "gs": "ROADMAP queue 1 item 6",
-    "filter": "ROADMAP queue 1 item 7",
 }
+
+
+@dataclass
+class Hit:
+    pid: int  # 1-based pattern id (revcomp ids in n+1..2n)
+    alignment: Alignment
+
+    @property
+    def end(self) -> int:
+        return self.alignment.end
+
+
+class SelectionError(SystemExit):
+    pass
+
+
+def _constraint_stats(ps: PatternSet):
+    """min_exact_const / cumdiff / cumbooldiff / min_inexact_bases over all
+    patterns (select.cc:31-67)."""
+    MAXINT = 1 << 62
+    min_exact = MAXINT
+    cumdiff = 0
+    cumbool = 0
+    min_inexact = MAXINT
+    min_len = MAXINT
+    for i in range(1, ps.n_total + 1):
+        n = len(ps.pattern(i))
+        min_len = min(min_len, n)
+        c = ps.esb[i] if ps.esb[i] >= ps.eeb[i] else ps.eeb[i]
+        min_exact = min(min_exact, c)
+        cumdiff += c - n // 2
+        cumbool += 1 if (c - n // 2) >= 0 else 0
+        min_inexact = min(min_inexact, n - c)
+    min_inexact = min(min_inexact, min_len)
+    return min_exact, cumdiff, cumbool, min_inexact, min_len
+
+
+def select_engine(db: SeqDB, ps: PatternSet, k: int, wc: bool,
+                  seedlen: int, node: int) -> str:
+    """pick_pattern_index auto logic (select.cc:103-142).  Returns one of
+    'exact_kt', 'exact_sa', 'halves', 'bases', 'filter'."""
+    min_exact, cumdiff, cumbool, min_inexact, min_len = _constraint_stats(ps)
+    if k >= min_inexact and k > 0:
+        import sys
+
+        sys.stderr.write(
+            "Fatal error: Number of edits >= Minimum number of inexact "
+            f"bases: {min_inexact}\n"
+        )
+        raise SelectionError(1)
+    if node != 0:
+        if node in (1, 2, 3):
+            # a prebuilt suffix tree overrides the keyword tree
+            # (select.cc:184-209)
+            if db.has_suffix_tree:
+                return "suftree"
+            return "exact_kt"
+        if node == 4:
+            return "exact_sa"
+        if node == 5:
+            return "filter"
+        if node == 6:
+            return "hash"
+        if node in (7, 8, 9, 10):
+            return "bases"
+        if node in (11, 12, 13, 14):
+            return "halves"
+        if node == 15:
+            return "gs"
+        return "filter"
+    if k == 0:
+        if wc:
+            return "exact_sa"
+        return "suftree" if db.has_suffix_tree else "exact_kt"
+    # ff->size(): 256 for raw FASTA / .seq streams, .tbl size for normalized
+    # databases (select.cc:107-127 keys off the producer's alphabet)
+    alpha = db.producer_alphabet
+    if (
+        k == 1
+        and ((min_len >= 12 and alpha < 10) or (min_len >= 8 and alpha >= 10))
+        and (cumbool <= 0 or cumdiff <= 0)
+    ):
+        return "halves"
+    if min_exact >= 6:
+        return "bases"
+    if seedlen > 0:
+        return "hash"  # hash_table / rand_hash_table (select.cc:134-136)
+    return "filter"
+
+
+_KT_STYLE = {1: "list nodes", 2: "nodes optimized for DNA",
+             3: "jump table nodes"}
+
+
+def _pmselect(db: SeqDB, ps: PatternSet, k: int, wc: bool,
+              seedlen: int, node: int) -> int:
+    """Reconstruct the reference's numeric strategy index
+    (select.cc:103-142).  Matches the oracle's NOPRIMEGEN build: the
+    auto-path gapped-seed branch (select.cc:128-130) is compiled out
+    there, so auto never yields 15."""
+    if node != 0:
+        return node
+    if wc:
+        pm = 4
+    elif db.producer_alphabet < 255:
+        pm = 2 if (db.nch("A") == 0 and db.nch("C") == 1
+                   and db.nch("G") == 2 and db.nch("T") == 3) else 3
+    else:
+        pm = 3
+    if k > 0:
+        min_exact, cumdiff, cumbool, _, min_len = _constraint_stats(ps)
+        alpha = db.producer_alphabet
+        if (k == 1
+                and ((min_len >= 12 and alpha < 10)
+                     or (min_len >= 8 and alpha >= 10))
+                and (cumbool <= 0 or cumdiff <= 0)):
+            pm = 11 + pm - 1
+        elif min_exact >= 6:
+            pm = 7 + pm - 1
+        elif seedlen > 0:
+            pm = 6
+        else:
+            pm = 5
+    return pm
+
+
+def select_report(db: SeqDB, ps: PatternSet, k: int, wc: bool, textn: bool,
+                  seedlen: int, node: int, indels: bool,
+                  dna_mut: bool) -> list[str]:
+    """The verbose lines pick_pattern_index emits (select.cc:149-278):
+    primer statistics, options summary, and the strategy announcement.
+    Returned without the ``[asctime]`` prefix — callers render each with
+    :func:`..utils.log.timestamp`."""
+    import math
+
+    N1 = ps.n_total
+    lines: list[str] = []
+    if N1:
+        patlens = [len(ps.pattern(i)) for i in range(1, N1 + 1)]
+        min_length = min(patlens)
+        avlen = sum(patlens) / N1
+        min_exact, cumdiff, cumbool, _, _ = _constraint_stats(ps)
+        cum_exact = sum(max(ps.esb[i], ps.eeb[i]) for i in range(1, N1 + 1))
+        lines.append("Primer stats: min length: %d" % min_length)
+        lines.append("              average len: %g"
+                     % (math.floor(avlen * 10 + 0.5) / 10))
+        if k > 0:
+            lines.append("              min exact bases: %d" % min_exact)
+            lines.append("              average exact: %g"
+                         % (math.floor(cum_exact / N1 * 10 + 0.5) / 10))
+            lines.append("              average (exact - len/2): %g"
+                         % (math.floor(cumdiff / N1 * 10 + 0.5) / 10))
+            lines.append("              count (exact >= len/2): %d" % cumbool)
+            lines.append("              seed length: %d" % seedlen)
+        lines.append("              number of primers: %d" % N1)
+    if indels:
+        lines.append("Options summary: string edits: %d" % k)
+    else:
+        lines.append("Options summary: mismatches: %d" % k)
+    if dna_mut:
+        lines.append("                 DNA mutation scoring")
+    if wc:
+        lines.append("                 wildcard, w/ text N" if textn
+                     else "                 wildcard, no text N")
+    else:
+        lines.append("                 no wildcard")
+    pm = _pmselect(db, ps, k, wc, seedlen, node)
+    if pm in (1, 2, 3):
+        lines.append("Using suffix tree..." if db.has_suffix_tree
+                     else "Using keyword tree with %s..." % _KT_STYLE[pm])
+    elif pm == 4:
+        lines.append("Using bitvector...")
+    elif pm == 5:
+        lines.append("Using inexact bitvector...")
+    elif pm == 6:
+        if math.log2(max(db.producer_alphabet, 2)) * seedlen <= 25:
+            lines.append("Using exact seed with hash table...")
+        else:
+            lines.append(
+                "Using (large) exact seed with randomized hash table...")
+    elif pm in (7, 8, 9):
+        lines.append("Using keyword tree with %s for exact portion..."
+                     % _KT_STYLE[pm - 6])
+    elif pm == 10:
+        lines.append("Using bitvector for exact portion...")
+    elif pm in (11, 12, 13):
+        lines.append("Using keyword tree with %s for exact halves..."
+                     % _KT_STYLE[pm - 10])
+    elif pm == 14:
+        lines.append("Using bitvector for exact halves...")
+    # TPU scan-path capability notice (this framework's analog of the
+    # reference's engine announcements): patterns longer than the Mosaic
+    # kernel halo fall back to the XLA conv path — a real perf cliff the
+    # operator should see, not a silent rerouting.  Reference configs
+    # never exceed 128, so stderr parity is unaffected.
+    if N1 and max(patlens) > 128:
+        lines.append(
+            "Long patterns (max length %d > 128): Mosaic scan kernel "
+            "unavailable, using the slower XLA conv scan path..."
+            % max(patlens))
+    return lines
+
+
+def db_pick_report(db: SeqDB, memmap: bool) -> list[str]:
+    """The verbose lines pick_fasta_file emits (select.t:29-188) for the
+    representation load_db chose and the reference-compatible I/O mode
+    flag (-B; our loads are flat ``np.fromfile`` reads either way)."""
+    kind = {
+        "sqn": "Normalized sequence database...",
+        "sqz": "Compressed sequence database...",
+        "seq": "Indexed sequence database...",
+        "raw": "Raw sequence database...",
+    }[db.source_kind]
+    io = ("Using mmap for sequence I/O..." if memmap
+          else "Not using mmap for sequence I/O...")
+    return [kind, io]
 
 
 class PrimerMatchModel:
@@ -91,11 +306,46 @@ class PrimerMatchModel:
         eos = chr(db.eos_char)
         self._final_aligner = EditDistAligner(
             k, eos, wc, textn, indels, dna_mut, yesno=False)
+        if self.engine == "filter":
+            self._cluster_aligner = EditDistAligner(
+                k, eos, wc, textn, indels, dna_mut, yesno=True)
         if self.engine in ("halves", "bases"):
             self._extender = Extender(k, eos, wc, textn, indels, dna_mut)
 
+    _tail_exec = None
+    _tailproc_c = None
+
+    def _filter_tailproc(self):
+        """Persistent out-of-process ``_filter_emit`` executor (built once
+        per model; None when spawning is unavailable)."""
+        if self._tailproc_c is None:
+            try:
+                from ..parallel.tailproc import FilterTailPool
+
+                self._tailproc_c = FilterTailPool(self)
+            except Exception:
+                self._tailproc_c = False
+        return self._tailproc_c or None
+
+    @classmethod
+    def _tail_pool(cls):
+        """One worker thread for the host tail (the tail stages share
+        per-model state, so they run serially; the point is overlap with
+        the main thread's device pipeline)."""
+        if cls._tail_exec is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            cls._tail_exec = ThreadPoolExecutor(max_workers=1)
+        return cls._tail_exec
+
     # None = per-size auto; False pins engine scanners to the device route
     use_host = None
+
+    def close(self) -> None:
+        """Stop the filter engine's tail processes, if any were started."""
+        if self._tailproc_c:
+            self._tailproc_c.close()
+        self._tailproc_c = None
 
     def _attach(self, scanner):
         scanner.progress = self.progress
@@ -121,6 +371,7 @@ class PrimerMatchModel:
             "halves": self._halves_engine,
             "bases": self._bases_engine,
             "suftree": self._suftree_engine,
+            "filter": self._filter_engine,
         }[self.engine]()
 
     _exact_ctx_c = None
@@ -171,9 +422,13 @@ class PrimerMatchModel:
         """Serving posture: ``reps`` engine runs over the resident
         database, run i + 1's device scan queued ahead of run i's host
         tail (``ConvScanner.scan_stream``, or ``scan_gated_stream`` for
-        the pigeonhole engines); per-run output identical to
+        the pigeonhole engines, ``SellersScanner.scan_pairs_stream`` for
+        the k-edit filter engine); per-run output identical to
         :meth:`engine_hits`."""
         codes = self.db.codes
+        if self.engine == "filter":
+            yield from self._filter_stream(reps)
+            return
         if self.engine in ("halves", "bases"):
             if self.engine == "halves":
                 _o, scanner, _b, dirs, ext_pats, geomB = self._halves_ctx()
@@ -267,7 +522,7 @@ class PrimerMatchModel:
 
     @staticmethod
     def _dedup_lib():
-        from sequence_alignment_tools_tpu.native import load_shift_and_lib
+        from ..native import load_shift_and_lib
 
         lib = load_shift_and_lib()
         return lib if lib is not None \
@@ -462,6 +717,213 @@ class PrimerMatchModel:
                 (-sids[okidx], -slen[sids[okidx]], ends[okidx]))]
         for i in sub:
             yield int(hend[i]), owner[int(sids[i])], int(value[i])
+
+    # -- the filter engine: k-edit / k-mismatch candidates, clusters -------
+
+    def _filter_stream(self, reps: int):
+        """:meth:`engine_hits_stream` of the filter engine.  ``-K``
+        (substitutions only) pipelines the poisoned k-mismatch scan
+        through ``ConvScanner.scan_stream`` with the cluster/verify tail
+        per run; k-edit pipelines the Myers or Sellers kernel through
+        ``SellersScanner.scan_pairs_stream`` with the tail in worker
+        processes (a worker thread would share the dispatch loop's GIL),
+        or a worker thread where processes cannot be spawned."""
+        codes = self.db.codes
+        scanner, _v = self._filter_ctx()
+        if not self.indels:
+            for _i, hits in scanner.scan_stream(codes for _ in range(reps)):
+                sends = np.fromiter((h[0] for h in hits), np.int64,
+                                    len(hits))
+                spids = np.fromiter((h[1] for h in hits), np.int64,
+                                    len(hits))
+                yield list(self._filter_emit(sends, spids))
+            return
+        if self.use_host or not scanner.kernel_available(len(codes)):
+            for _ in range(reps):
+                yield list(self.engine_hits())
+            return
+        tailp = self._filter_tailproc()
+        if tailp is not None:
+            pend = 0
+            for _i, sends, spids in scanner.scan_pairs_stream(
+                    codes for _ in range(reps)):
+                tailp.submit(sends, spids)
+                pend += 1
+                while pend > 6:
+                    yield tailp.result()
+                    pend -= 1
+            while pend:
+                yield tailp.result()
+                pend -= 1
+            return
+        pool = self._tail_pool()
+        futs = deque()
+        for _i, sends, spids in scanner.scan_pairs_stream(
+                codes for _ in range(reps)):
+            futs.append(pool.submit(
+                lambda s=sends, p=spids: list(self._filter_emit(s, p))))
+            while len(futs) > 4:
+                yield futs.popleft().result()
+        while futs:
+            yield futs.popleft().result()
+
+    _filter_ctx_c = None
+
+    def _filter_ctx(self):
+        """(scanner, verifier) of the filter engine, built once per model
+        (a resident database must not re-pay table builds or uploads):
+        k-edit takes the :class:`SellersScanner`, ``-K`` the poisoned
+        k-mismatch :class:`ConvScanner`."""
+        if self._filter_ctx_c is not None:
+            return self._filter_ctx_c
+        from ..engine.verify import BatchVerifier
+
+        ps, k = self.ps, self.k
+        tables = build_tables(ps, self.db, self.wc, self.textn)
+        if self.indels:
+            scanner = self._attach(SellersScanner(
+                tables, k=k, indels=True, device=self.device))
+        else:
+            scanner = self._attach(ConvScanner(
+                tables, k=k, poison_eos=True, device=self.device))
+        verifier = BatchVerifier(
+            self._cluster_aligner, self.db,
+            [ps.pattern(pid) for pid in range(1, ps.n_total + 1)],
+            [ps.esb[pid] for pid in range(1, ps.n_total + 1)],
+            [ps.eeb[pid] for pid in range(1, ps.n_total + 1)],
+        )
+        self._filter_ctx_c = (scanner, verifier)
+        return self._filter_ctx_c
+
+    def _filter_engine(self):
+        """filter_bitvec (filter_bitvec.cc:73-183): the k-edit candidate
+        set from the native Sellers rows (small scans) or the device
+        kernels, or the k-mismatch scan under ``-K``, then the reference's
+        batch / cluster / defer host tail (:meth:`_filter_emit_rounds`)."""
+        scanner, _verifier = self._filter_ctx()
+        codes = self.db.codes
+        if self.indels and scanner._host_eligible(len(codes)):
+            scanner._route("native Sellers row machine "
+                           "(one-shot latency path)")
+            sends, spids = scanner.host_pairs(codes)
+        elif self.indels and not self.use_host \
+                and scanner.kernel_available(len(codes)):
+            sends, spids = scanner.scan_pairs(codes)
+        else:
+            ends_l: list[int] = []
+            pids_l: list[int] = []
+            for end, p0, _ in scanner.scan(codes):
+                ends_l.append(end)
+                pids_l.append(p0)
+            sends = np.asarray(ends_l, np.int64)
+            spids = np.asarray(pids_l, np.int64)
+        yield from self._filter_emit(sends, spids)
+
+    def _filter_emit(self, sends, spids):
+        """Tuple-stream form of :meth:`_filter_emit_rounds` (the
+        engine_hits contract)."""
+        for ea, pa, va in self._filter_emit_rounds(sends, spids):
+            yield from zip(ea.tolist(), pa.tolist(), va.tolist())
+
+    def _filter_emit_rounds(self, sends, spids):
+        """filter_bitvec host tail from an unordered candidate array pair,
+        the JAX model's vectorised form of the reference's batch /
+        cluster / defer state machine (filter_bitvec.cc:88-181).  Yields
+        one (ends, pids_1based, values) array triple per emission round;
+        concatenated in round order they are the engine's hit stream:
+
+        - batch formation: the incremental find_patterns break (>= minka
+          new candidates and a 2-position silence) is the first index
+          ``i >= si + minka`` with ``ends[i] > ends[i-1] + 2``;
+        - clustering: a cluster is a maximal same-pattern chain with
+          successive gaps <= 2k+1, from one lexsort and a diff;
+        - discovery order: clusters sort by their first member's index in
+          the (key, pid)-sorted batch (the reference's i-loop);
+        - deferral: the loop breaks at the first discovered cluster whose
+          window may still grow (oldcharspos < pos + window), so exactly
+          the discovery-order prefix before it is emitted and every other
+          entry carries over in batch order."""
+        from ..engine.verify import sort_pairs_stdsort
+
+        k = self.k
+        minka = self.report_interval
+        _scanner, verifier = self._filter_ctx()
+        sorder = np.lexsort((spids, sends))
+        sends, spids = sends[sorder].astype(np.int64), \
+            spids[sorder].astype(np.int64)
+        n_stream = len(sends)
+        si = 0  # stream cursor
+        window = 2 * k + 1
+        total_len = len(self.db)
+        keys = np.zeros(0, np.int64)
+        pids = np.zeros(0, np.int64)
+        while True:
+            # -- emulate pm_->find_patterns(cp, l, minka) ------------------
+            more = False
+            oldcharspos = total_len
+            if si < n_stream:
+                brk = n_stream
+                lo = si + minka
+                if lo < n_stream:
+                    gaps = np.flatnonzero(
+                        sends[lo:] > sends[lo - 1 : -1] + 2)
+                    if len(gaps):
+                        brk = lo + int(gaps[0])
+                        oldcharspos = int(sends[brk - 1]) + 2
+                more = True
+                keys = np.concatenate([keys, sends[si:brk]])
+                pids = np.concatenate([pids, spids[si:brk]])
+                si = brk
+                if brk == n_stream:
+                    oldcharspos = total_len
+            if not more and not len(keys):
+                return
+            # -- normalize (std::sort tie order) + vectorized clusters ----
+            skeys, spayload = sort_pairs_stdsort(keys, pids)
+            n_l = len(skeys)
+            idx = np.arange(n_l)
+            o = np.lexsort((idx, skeys, spayload))  # (pid, key, index)
+            kp, pp, ip = skeys[o], spayload[o], idx[o]
+            newc = np.ones(n_l, bool)
+            newc[1:] = (pp[1:] != pp[:-1]) | (kp[1:] - kp[:-1] > window)
+            cid = np.cumsum(newc) - 1
+            first_of = np.flatnonzero(newc)
+            last_of = np.append(first_of[1:], n_l) - 1
+            firstpos = kp[first_of]
+            pos_c = kp[last_of]
+            pid_c = pp[first_of]
+            disc = ip[first_of]
+            order_c = np.argsort(disc, kind="stable")
+            nclust = len(first_of)
+            emit_rank = nclust
+            if more:
+                dd = (oldcharspos < pos_c + window)[order_c]
+                w = np.flatnonzero(dd)
+                if len(w):
+                    emit_rank = int(w[0])
+            emit_cids = order_c[:emit_rank]
+            # one batched native verify per round; emission order is the
+            # cluster discovery order (filter_bitvec.cc:140-170)
+            if len(emit_cids):
+                found, aend, aval = verifier(
+                    pid_c[emit_cids].astype(np.int32),
+                    firstpos[emit_cids], pos_c[emit_cids])
+                fi = np.flatnonzero(found)
+                if len(fi):
+                    yield (aend[fi], pid_c[emit_cids[fi]] + 1,
+                           aval[fi].astype(np.int64))
+            emitted = np.zeros(nclust, bool)
+            emitted[emit_cids] = True
+            liveA = np.empty(n_l, bool)
+            liveA[o] = ~emitted[cid]
+            keys = skeys[liveA]
+            pids = spayload[liveA]
+            if not more and si >= n_stream:
+                if not len(keys):
+                    return
+                # leftovers remain but the scan is over: the next pass has
+                # more=False and takes them without deferral
+                continue
 
     # -- final hits (reference main-loop re-verification) -------------------
 

@@ -14,8 +14,8 @@ with ``W`` the conv weights (EOS poison under ``poison_eos``).
 1. stream-whole: arrays past ``_RESIDENT_MAX`` (or memory-mapped past
    ``_STREAM_BLOCK``) scan as halo'd blocks through :meth:`scan_stream`;
 2. sharded: not ported (ROADMAP queue 1 item 11), raises;
-3. host: the native shift-and machine (``ops/host_scan.HostShiftAnd`` of
-   the JAX package, as it is) for small scans;
+3. host: the native shift-and machine (:class:`.host_scan.HostShiftAnd`,
+   the port's copy of the JAX package's) for small scans;
 4. radix census for dense exact seeds: not ported (ROADMAP queue 1
    item 3), raises;
 5. the fused device route for every other scan, at any length, pattern
@@ -118,7 +118,7 @@ class ConvScanner:
         if msg in self._routes_done:
             return
         self._routes_done.add(msg)
-        from sequence_alignment_tools_tpu.utils.log import timestamp
+        from ..utils.log import timestamp
 
         timestamp("Route: " + msg)
 
@@ -397,9 +397,7 @@ class ConvScanner:
         if os.environ.get("SAT_HOST_SCAN", "1") == "0":
             return False
         if self._host_scanner is None:
-            from sequence_alignment_tools_tpu.ops.host_scan import (
-                HostShiftAnd,
-            )
+            from .host_scan import HostShiftAnd
 
             self._host_scanner = HostShiftAnd(
                 self.tables, self.k, self.poison_eos)

@@ -112,3 +112,24 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, i64,            # out, cap
             vp,                 # stream
         ]
+    elif name == "myers":
+        lib.sat_myers_pairs.restype = i32
+        lib.sat_myers_pairs.argtypes = [
+            vp, i64, vp,        # codes, n, eq
+            ctypes.POINTER(ctypes.c_int32), i32,  # host words [nw, 4], nw
+            i32, i32,           # eos, k
+            i32, i32,           # segc, halo
+            vp, i64,            # out, cap
+            vp,                 # stream
+        ]
+    elif name == "sellers":
+        lib.sat_sellers_scan.restype = i32
+        lib.sat_sellers_scan.argtypes = [
+            vp, i64,            # codes, n
+            vp, vp,             # acc, lens
+            i32, i32, i32, i32,  # P, Lmax, aw, alpha
+            i32, i32, i32,      # eos, k, indels
+            i32, i32,           # segc, halo
+            vp, i64,            # out, cap
+            vp,                 # stream
+        ]

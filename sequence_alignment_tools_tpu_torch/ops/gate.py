@@ -79,7 +79,7 @@ class GateTables:
         DP's accept test (equal, or IUPAC-compatible in wc mode with the
         text-N rule) over the database alphabet.  ``offs[s]`` is the
         matched seed's length for rmatch seeds (0 for lmatch)."""
-        from sequence_alignment_tools_tpu.utils.iupac import compat_matrix
+        from ..utils.iupac import compat_matrix
 
         alpha = db.alphabet_size
         S = len(ext_pats)

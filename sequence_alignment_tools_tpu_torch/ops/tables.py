@@ -1,11 +1,11 @@
-"""Pattern tables on the device.
+"""Pattern tables: the host build and the device operands.
 
-The JAX package's :func:`sequence_alignment_tools_tpu.ops.tables.build_tables`
-builds the numpy ``PatternTables`` (the accept relation per pattern,
-position and code) and is used as it is.  Its ``conv_weights`` ends in a
-bfloat16 cast that needs ``ml_dtypes``, which ships with jax, so the
-port builds the same weights here in float32 and moves them to the
-device once per scanner.
+:func:`build_tables` is the port's copy of the JAX package's
+``ops/tables.build_tables``: the numpy ``PatternTables`` (the accept
+relation per pattern, position and code).  The JAX ``conv_weights`` ends
+in a bfloat16 cast that needs ``ml_dtypes``, which ships with jax, so the
+port builds the same weights here in float32 (:func:`conv_weights_f32`)
+and moves them to the device once per scanner (:func:`device_tables`).
 """
 
 from __future__ import annotations
@@ -14,6 +14,62 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..io.database import SeqDB
+from ..io.patterns import PatternSet
+from ..utils.iupac import COMPATIBLE
+
+
+@dataclass
+class PatternTables:
+    match: np.ndarray  # [P, Lmax, alpha] bool
+    lengths: np.ndarray  # [P] int32
+    pat_codes: np.ndarray  # [P, Lmax] int16, -1 pad / unmappable
+    Lmax: int
+    alpha: int
+    eos_code: int
+    # producer alphabet chars per code (db.table); None when unknown
+    code_chars: bytes | None = None
+
+    @property
+    def P(self) -> int:
+        return len(self.lengths)
+
+
+def build_tables(ps: PatternSet, db: SeqDB, wc: bool,
+                 textn: bool) -> PatternTables:
+    """Accept tables of ``ps`` over ``db``'s alphabet (IUPAC wildcard
+    expansion with the text-N rule under ``wc``)."""
+    P = ps.n_total
+    Lmax = max(ps.max_len, 1)
+    alpha = db.alphabet_size
+    match = np.zeros((P, Lmax, alpha), dtype=bool)
+    lengths = np.zeros(P, dtype=np.int32)
+    pat_codes = np.full((P, Lmax), -1, dtype=np.int16)
+    for p in range(P):
+        pat = ps.pattern(p + 1)
+        lengths[p] = len(pat)
+        for j, ch in enumerate(pat):
+            compat = COMPATIBLE.get(ch.upper()) if wc else None
+            if wc and compat is not None:
+                for cch in compat:
+                    code = db.nch(cch)
+                    if code >= 0 and (cch != "N" or textn):
+                        match[p, j, code] = True
+            else:
+                code = db.nch(ch)
+                if code >= 0:
+                    match[p, j, code] = True
+                    pat_codes[p, j] = code
+    return PatternTables(
+        match=match,
+        lengths=lengths,
+        pat_codes=pat_codes,
+        Lmax=Lmax,
+        alpha=alpha,
+        eos_code=db.eos_code,
+        code_chars=bytes(db.table) if getattr(db, "table", None) else None,
+    )
 
 
 @dataclass(frozen=True)

@@ -1,15 +1,19 @@
-"""The port never imports jax.
+"""The port never imports jax, nor anything of the JAX package.
 
 A site-less interpreter (``python -S``, ``sys.path`` built by hand as the
 ``sat`` launcher builds it) runs the port's CLI on a synthetic database
 through the plain PyTorch scan and through the native host machine, and
-reports whether jax was imported, for exact search and for ``-k 1`` (the
-gated seed scan and the native extension); a source scan checks every
-file of the package and ``chip_smoke.py``.
+reports whether jax or any module of the JAX package
+(``sequence_alignment_tools_tpu`` or ``sequence_alignment_tools_tpu.*``)
+was imported, for exact search, for ``-k 1`` (the gated seed scan and the
+native extension) and for the filter engine (``-k 2``: the Myers scan and
+the cluster verify; ``-K 2``: the poisoned k-mismatch scan); a source
+scan checks every file of the package and ``chip_smoke.py``.
 """
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -31,7 +35,11 @@ if not os.path.isdir(sp):
     sp = sysconfig.get_paths()["purelib"]
 sys.path[:0] = [sp, sys.argv[1]]
 atexit.register(lambda: sys.stderr.write(
-    "jax_imported=%s\n" % ("jax" in sys.modules)))
+    "jax_imported=%s jax_package_imported=%s\n" % (
+        "jax" in sys.modules,
+        any(m == "sequence_alignment_tools_tpu"
+            or m.startswith("sequence_alignment_tools_tpu.")
+            for m in sys.modules))))
 sys.argv = ["sequence_alignment_tools_tpu_torch"] + sys.argv[2:]
 runpy.run_module("sequence_alignment_tools_tpu_torch", run_name="__main__",
                  alter_sys=True)
@@ -40,8 +48,11 @@ runpy.run_module("sequence_alignment_tools_tpu_torch", run_name="__main__",
 
 @pytest.mark.parametrize("host_scan,flags", [("0", ["-r", "-c"]),
                                              ("1", ["-r"]),
-                                             ("0", ["-k", "1", "-r"])],
-                         ids=["torch-blocks", "host-machine", "gated-k1"])
+                                             ("0", ["-k", "1", "-r"]),
+                                             ("0", ["-k", "2", "-r"]),
+                                             ("0", ["-K", "2", "-r"])],
+                         ids=["torch-blocks", "host-machine", "gated-k1",
+                              "filter-k2", "filter-K2"])
 def test_sitless_cli_never_imports_jax(tmp_path, capsys, monkeypatch,
                                        host_scan, flags):
     fasta = str(tmp_path / "db.fasta")
@@ -58,7 +69,8 @@ def test_sitless_cli_never_imports_jax(tmp_path, capsys, monkeypatch,
         [sys.executable, "-S", "-c", BOOT, str(REPO), "primer_match"] + argv,
         capture_output=True, timeout=300, env=env, cwd=str(tmp_path))
     assert r.returncode == 0, r.stderr.decode()[-1500:]
-    assert b"jax_imported=False" in r.stderr, r.stderr.decode()[-1500:]
+    assert b"jax_imported=False jax_package_imported=False" in r.stderr, \
+        r.stderr.decode()[-1500:]
     monkeypatch.setenv("SAT_HOST_SCAN", "0")
     monkeypatch.setenv("SAT_MESH", "0")
     capsys.readouterr()
@@ -68,9 +80,17 @@ def test_sitless_cli_never_imports_jax(tmp_path, capsys, monkeypatch,
     assert r.stdout.decode() == want
 
 
+# an import of the JAX package: a module path that starts with its name
+# and does not go on with "_torch"
+JAX_PKG_IMPORT = re.compile(
+    r"^\s*(from|import)\s+sequence_alignment_tools_tpu(?!_torch)\b",
+    re.MULTILINE)
+
+
 def test_no_file_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 12
     for f in files:
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
+        assert not JAX_PKG_IMPORT.search(text), f

@@ -91,7 +91,9 @@ def test_parity_edit_options(inputs, flags, host_scan, capsys, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("flags", [["-K", "2"], ["-T"], ["-k", "2", "-r"]])
+# the engines hash (-N 6) and gs (-N 15) and translated search (-T)
+@pytest.mark.parametrize("flags", [["-k", "1", "-N", "6"], ["-T"],
+                                   ["-k", "1", "-N", "15", "-r"]])
 def test_unported_options_exit(inputs, flags, capsys, monkeypatch):
     fasta, words, _ = inputs
     monkeypatch.setenv("SAT_DEVICE", "cpu")

@@ -145,8 +145,7 @@ def test_bench_primers_select_halves(db):
     assert JaxModel(db, ps, k=1, mesh=None).engine == "halves"
 
 
-@pytest.mark.parametrize("k,node,engine", [(2, 0, "filter"), (1, 6, "hash"),
-                                           (1, 15, "gs")])
+@pytest.mark.parametrize("k,node,engine", [(1, 6, "hash"), (1, 15, "gs")])
 def test_unported_engines_raise(db, k, node, engine):
     ps = build_pattern_set(PATS, rev_comp=True)
     with pytest.raises(NotImplementedError, match=engine):
