@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from this checkout, holds each against its
 plain PyTorch version, then drives the port's main paths (exact, k = 1,
-k = 2 and ``-K 2`` primer_match, both strands) at full size and checks
-their output:
+k = 2 and ``-K 2`` primer_match, both strands; the 50,000-pattern exact
+batch and its k = 1 halves run; pcr_match) at full size and checks their
+output:
 
 1. card: name and power limit, kernel build time;
 2. kernel against plain: ``scan_occupancy`` on the card equals
@@ -50,8 +51,30 @@ their output:
     complements (P = 48, Lmax = 40), k = 2, over the first 2^26 positions
     with the primers planted; engine hits equal to the host route's (the
     native Sellers rows over pattern groups that fit the native machine);
-11. CLI: ``-k 2 -r -c``, ``-k 2 -r``, ``-K 2 -r`` and the long primers with
-    ``-k 2 -r``, device bytes equal to host bytes.
+11. the slot kernels against plain: ``scan_slots`` against
+    ``scan_slots_ref`` at 2^20 positions with 5,000 seeds of mixed lengths
+    8 to 24 (duplicates, one seed planted across an EOS) and at cap 1 (the
+    overflow); ``gate_slots`` against ``gate_slots_ref`` on that slot list
+    at k = 1 and 2, with and without indels; ``gate_slots`` over
+    ``scan_slots`` against the fused ``seed_gate`` on the 40-seed table
+    (equal survivor sets); the pattern-blocked rung (2,500 degenerate
+    primers) against the native shift-and over pattern groups;
+12. the many-pattern path at full width: 50,000 literal 20-mers drawn
+    from the resident 2^28 database; exact, ``scan_seed_arrays`` through
+    the census kernel against the native host census over the first 2^26
+    positions, then over 2^28; k = 1, ``engine_hits_arrays`` of the halves
+    engine (100,000 half seeds: ``scan_slots``, ``gate_slots``, native
+    extension) against the CPU route (native census, inline gate) over a
+    2^24 prefix, then over 2^28, with a ``torch.profiler`` breakdown of
+    both;
+13. pcr_match: ``pairs_stream`` of 10 primer pairs over the resident 2^28
+    database at k = 0, equal to ``pairs``;
+14. CLI: ``-k 2 -r -c``, ``-k 2 -r``, ``-K 2 -r`` and the long primers with
+    ``-k 2 -r``; on a 600,000-base corpus the seed-table engines, ``-N 6
+    -k 1 -r`` (hash: the census rung), ``-N 15 -K 2 -r`` (gs) and the long
+    primers with ``-N 15 -k 2 -r`` (gs: the pattern-blocked rung);
+    ``pcr_match -r -M 2000`` at k = 0 and ``-k 1``; device bytes equal to
+    host bytes.
 
 Every phase raises on a mismatch.  The line before the last is a JSON
 object with each kernel's launches on its main path, error, times and
@@ -324,16 +347,21 @@ def profile(label, fn, reps):
         if us is None:
             us = ev.self_cuda_time_total
         if us > 0:
-            rows.append((us / 1e3 / reps, ev.count / reps, ev.key))
+            rows.append((us / 1e3 / reps, ev.count / reps, ev.key,
+                         us / 1e3 / ev.count))
     rows.sort(reverse=True)
     # the aten:: rows repeat the device time of the kernels they launch
-    dev_ms = sum(ms for ms, _, key in rows if not key.startswith("aten::")
+    dev_ms = sum(ms for ms, _, key, _ in rows
+                 if not key.startswith("aten::")
                  and key != "Activity Buffer Request")
     log(f"== profile {label}: {reps} reps, wall {wall / reps:.3f} ms/rep, "
         f"device time {dev_ms:.3f} ms/rep (kernels and copies, "
         f"{100 * dev_ms * reps / wall:.1f}% of wall)")
-    for ms, count, key in rows[:14]:
-        log(f"   {ms:10.4f} ms/rep  x{count:6.1f}  {key[:90]}")
+    # a count below 1 per rep means the profiler dropped launches of that
+    # window: the time per launch it did record stands beside the sum
+    for ms, count, key, each in rows[:14]:
+        log(f"   {ms:10.4f} ms/rep  x{count:6.1f}  ({each:.4f} ms each)  "
+            f"{key[:80]}")
 
 
 def survivor_set(row, cap):
@@ -409,34 +437,42 @@ def check_seed_gate(cases):
     return worst
 
 
-def write_bench_corpus(path):
+def write_bench_corpus(path, entries=8, entry_len=ENTRY):
     """bench.py's 16 M-base corpus layout (8 entries of 2,000,000 random
     bases, 70-character lines, seed 42), with each primer planted once
-    exact and its reverse complement once with one substitution."""
+    exact and its reverse complement once with one substitution (the long
+    primers: two edits), at offsets scaled to ``entry_len``.  Returns the
+    first entry's sequence."""
     from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
 
     rng = np.random.default_rng(42)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    unit = entry_len // 200  # 10,000 bases at bench.py's entry length
+    first = None
     with open(path, "w") as f:
-        for e in range(8):
+        for e in range(entries):
             f.write(f">bench{e} synthetic benchmark entry {e}\n")
-            seq = acgt[rng.integers(0, 4, size=ENTRY)]
-            for i in range(e, len(PATS), 8):
-                for at, v in ((400_000 + 9_973 * i, PATS[i]),
-                              (1_200_000 + 9_973 * i,
+            seq = acgt[rng.integers(0, 4, size=entry_len)]
+            for i in range(e, len(PATS), entries):
+                for at, v in ((40 * unit + 9_973 * i * unit // 10_000,
+                               PATS[i]),
+                              (120 * unit + 9_973 * i * unit // 10_000,
                                edit(rng, reverse_comp(PATS[i]), ("sub",)))):
                     seq[at : at + len(v)] = np.frombuffer(v.encode(),
                                                           np.uint8)
-            for i in range(e, len(LONG), 8):
-                for at, v in ((600_000 + 9_973 * i, LONG[i]),
-                              (1_600_000 + 9_973 * i,
+            for i in range(e, len(LONG), entries):
+                for at, v in ((60 * unit + 9_973 * i * unit // 10_000,
+                               LONG[i]),
+                              (160 * unit + 9_973 * i * unit // 10_000,
                                edit(rng, reverse_comp(LONG[i]),
                                     ("sub", "ins")))):
                     seq[at : at + len(v)] = np.frombuffer(v.encode(),
                                                           np.uint8)
             s = seq.tobytes().decode()
-            for i in range(0, ENTRY, 70):
+            first = first or s
+            for i in range(0, entry_len, 70):
                 f.write(s[i : i + 70] + "\n")
+    return first
 
 
 def row_set(row, cap, width):
@@ -564,9 +600,109 @@ def plant_variants(codes, pats, starts, rng, offset):
     return out
 
 
-def run_cli(argv):
-    from sequence_alignment_tools_tpu_torch.apps.primer_match import main
+def draw_patterns(codes, count, length):
+    """``count`` literal ``length``-mers drawn from ``codes`` at equal
+    steps, as bench.py's 50,000-pattern rows draw theirs: a window that
+    holds an EOS gives way to the ``length`` characters after it."""
+    step = (len(codes) - length) // count
+    idx = (np.arange(count, dtype=np.int64) * step)[:, None] \
+        + np.arange(2 * length)[None, :]
+    win = codes[idx]
+    table = np.frombuffer(TABLE, np.uint8)
+    clean = (win[:, :length] < 4).all(axis=1)
+    rows = np.where(clean[:, None], win[:, :length], win[:, length:])
+    if not (rows < 4).all():
+        raise AssertionError("a drawn pattern holds an EOS")
+    return [r.tobytes().decode() for r in table[rows]]
 
+
+def literal_pattern_set(pats):
+    """Forward-only pattern set without constraints (bench.py:390-394)."""
+    from sequence_alignment_tools_tpu_torch.io.patterns import PatternSet
+
+    ps = PatternSet()
+    ps.patterns = [""] + list(pats)
+    ps.esb = [0] * (len(pats) + 1)
+    ps.eeb = [0] * (len(pats) + 1)
+    ps.n_forward = len(pats)
+    return ps
+
+
+def prefix_db(db, n):
+    """The first ``n`` positions of ``db`` as a database of its own."""
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
+
+    keep = db.entry_starts < n
+    starts = db.entry_starts[keep]
+    return SeqDB(codes=db.codes[:n].copy(), table=TABLE, entry_starts=starts,
+                 entry_lengths=np.minimum(db.entry_lengths[keep], n - starts),
+                 headers=list(db.headers[: int(keep.sum())]))
+
+
+def grouped_host_scan(tables, codes, bits=4096):
+    """The native shift-and over groups of patterns that each fit its
+    state (``bits``), merged to (window start, pattern) order: the host
+    reference for a pattern set too wide for one machine."""
+    from sequence_alignment_tools_tpu_torch.ops.host_scan import HostShiftAnd
+    from sequence_alignment_tools_tpu_torch.ops.tables import PatternTables
+
+    out = []
+    p0 = 0
+    while p0 < tables.P:
+        p1 = p0
+        used = 0
+        while p1 < tables.P and used + int(tables.lengths[p1]) <= bits:
+            used += int(tables.lengths[p1])
+            p1 += 1
+        sl = slice(p0, p1)
+        sub = PatternTables(match=tables.match[sl], lengths=tables.lengths[sl],
+                            pat_codes=tables.pat_codes[sl], Lmax=tables.Lmax,
+                            alpha=tables.alpha, eos_code=tables.eos_code,
+                            code_chars=tables.code_chars)
+        host = HostShiftAnd(sub, 0, False)
+        if not host.available():
+            raise RuntimeError("native shift-and unavailable")
+        out += [(e - int(sub.lengths[q]), p0 + q, e, m)
+                for e, q, m in host.scan(codes)]
+        p0 = p1
+    return [(e, q, m) for _s, q, e, m in sorted(out)]
+
+
+def row_keys(row, cap):
+    """(true count, sorted int64 keys ``column 0 << 20 | column 1``) of
+    the kept entries of a ``[count, col (cap), col (cap)]`` row (seed ids
+    stay below 2^20)."""
+    count = int(row[0])
+    m = min(count, cap)
+    a = row[1 : 1 + m].cpu().numpy().astype(np.int64)
+    b = row[1 + cap : 1 + cap + m].cpu().numpy().astype(np.int64)
+    return count, np.sort((a << 20) | b)
+
+
+def check_slots(name, got, want, cap, full):
+    """Kernel row against plain row (``[count, col (cap), col (cap)]``):
+    equal sets, or with a cap below the count equal true counts and the
+    kept entries among the plain ones.  Returns the difference: count
+    difference plus entries in one set only."""
+    gc, gkeys = row_keys(got, cap)
+    wc, wkeys = row_keys(want, full)
+    if cap >= wc:
+        # both are sorted and free of duplicates: equal sets are equal arrays
+        err = abs(gc - wc) + (0 if np.array_equal(gkeys, wkeys) else len(
+            np.setxor1d(gkeys, wkeys, assume_unique=True)))
+    else:
+        err = abs(gc - wc) + int((~np.isin(gkeys, wkeys)).sum())
+    log(f"{name}: entries={wc} (cap {cap}) err={err}")
+    if err or wc == 0:
+        raise AssertionError(f"{name}: kernel differs from plain")
+    return err
+
+
+def run_cli(argv, tool="primer_match"):
+    import importlib
+
+    main = importlib.import_module(
+        "sequence_alignment_tools_tpu_torch.apps." + tool).main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         main(argv)
@@ -703,7 +839,7 @@ def main():
     k28 = cuda_ms(lambda: scan_occupancy(
         main_dev, dt.weights16, dt.thresholds, MAIN_N, EOS), reps=10)
     p28 = cuda_ms(lambda: scan_occupancy_ref(
-        main_dev, dt.weights16, dt.thresholds, MAIN_N, EOS), reps=3)
+        main_dev, dt.weights16, dt.thresholds, MAIN_N, EOS), reps=1)
     log(f"scan_occupancy at n=2^28, P=20, k=0 on {smi}: kernel {k28:.4f} "
         f"ms, plain {p28:.4f} ms (CUDA events, median; equal)")
     del main_dev, got_occ, want_occ
@@ -1085,51 +1221,407 @@ def main():
         f"equal; {sel_hits_n} triples)")
     del sl_dev, ml
 
-    # 10. CLI: device route and host route print the same bytes
+    # 10. the slot kernels against plain, and the pattern-blocked rung
+    from sequence_alignment_tools_tpu_torch.models.pcr_match import (
+        PcrMatchModel,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.slots import (
+        gate_slots,
+        gate_slots_ref,
+        scan_slots,
+        scan_slots_ref,
+        slot_gated_hits,
+    )
+
+    slot_n = 1 << 20
+    sr = np.random.default_rng(SEED + 5)
+    scodes = codes[:slot_n].copy()
+    stab = np.frombuffer(TABLE, np.uint8)
+    spats = []
+    while len(spats) < 2492:
+        at = int(sr.integers(1, slot_n - 60))
+        w = scodes[at : at + int(sr.integers(16, 49))]
+        if (w < 4).all():
+            spats.append(stab[w].tobytes().decode())
+    cut = random_pats(sr, 1, 40, 40)[0]  # planted with an EOS in each half
+    spats = spats + [cut] + spats[:7]     # 2,500 patterns, 7 of them twice
+    for at in (700_000, 800_000):
+        scodes[at : at + 40] = [TABLE.index(c.encode()) for c in cut]
+    scodes[700_009] = scodes[800_031] = EOS
+    sdb1 = SeqDB(codes=scodes, table=TABLE, entry_starts=np.array([1]),
+                 entry_lengths=np.array([slot_n - 1]), headers=["slots"])
+
+    def slots_setup(k, indels, node):
+        m = PrimerMatchModel(sdb1, build_pattern_set(spats, rev_comp=False),
+                             k=k, indels=indels, node=node, device=dev)
+        if m.engine != "halves":
+            raise AssertionError(f"slot check took engine {m.engine}")
+        _o, hsc, _b, hdirs, hext, hgeomB = m._halves_ctx()
+        hsc.use_host = False
+        gate = m._engine_gate(hsc, hdirs, hext, hgeomB, lambda p0: p0 + 1)
+        return hsc, hsc._gate_dev(gate)
+
+    ssc, gt_s1 = slots_setup(1, True, 0)
+    mt_s = ssc._mer_dev()
+    sdev = ssc._device_form(scodes)
+    full = 1 << 22
+    slots_row = scan_slots(sdev, slot_n, mt_s, full)
+    want_row = scan_slots_ref(sdev, slot_n, mt_s, full)
+    torch.cuda.synchronize()
+    slots_err = check_slots(
+        f"scan_slots check n=2^20, {mt_s.P} seeds of lengths "
+        f"{mt_s.lens[0]} to {mt_s.lens[-1]} ({len(mt_s.lens)} classes)",
+        slots_row, want_row, full, full)
+    cut_sids = {2 * spats.index(cut), 2 * spats.index(cut) + 1}
+    cut_hits = [(t, sd) for t, sd in row_set(want_row, full, 2)[1]
+                if sd in cut_sids]
+    if sorted(cut_hits) != [(700_020, max(cut_sids)),
+                            (800_000, min(cut_sids))]:
+        raise AssertionError(f"seed halves cut by EOS: {cut_hits}")
+    slots_err = max(slots_err, check_slots(
+        "scan_slots check cap 1 (overflow)",
+        scan_slots(sdev, slot_n, mt_s, 1), want_row, 1, full))
+    gslots_err = 0
+    for k, indels, node in ((1, True, 0), (1, False, 0), (2, True, 11),
+                            (2, False, 11)):
+        _sc, gt_s = (ssc, gt_s1) if (k, indels) == (1, True) \
+            else slots_setup(k, indels, node)
+        gslots_err = max(gslots_err, check_slots(
+            f"gate_slots check k={k} indels={indels} Lg={gt_s.Lg} "
+            f"band={gt_s.band}, {int(slots_row[0])} slots",
+            gate_slots(sdev, slot_n, slots_row, mt_s.lengths, gt_s, indels,
+                       full),
+            gate_slots_ref(sdev, slot_n, slots_row, mt_s.lengths, gt_s,
+                           indels, full), full, full))
+    gslots_err = max(gslots_err, check_slots(
+        "gate_slots check cap 1 (overflow)",
+        gate_slots(sdev, slot_n, slots_row, mt_s.lengths, gt_s1, True, 1),
+        gate_slots_ref(sdev, slot_n, slots_row, mt_s.lengths, gt_s1, True,
+                       full), 1, full))
+    del sdev, slots_row, want_row
+    gate_dev = torch.from_numpy(codes[:gate_n].copy()).to(dev)
+    fused_row = gated_hits(gate_dev, gate_n, dt_h, gt_h, EOS, True,
+                           gate_n // 32, 1 << 16)
+    unfused_row = slot_gated_hits(gate_dev, gate_n, sc1._mer_dev(), gt_h,
+                                  True, 1 << 22, 1 << 16)
+    fc, fset = row_set(fused_row[1:], 1 << 16, 2)
+    uc, uset = row_set(unfused_row[1:], 1 << 16, 2)
+    if fset != uset or fc != uc or not fset:
+        raise AssertionError(f"gate_slots(scan_slots) differs from seed_gate: "
+                             f"{uc} vs {fc} survivors")
+    log(f"gate_slots(scan_slots) == seed_gate on the 40 half seeds, n=2^22: "
+        f"{int(unfused_row[0])} slots, {uc} survivors")
+    del gate_dev
+    wtext = wdb.decode(0, len(wdb.codes))
+    wmany = [wtext[i : i + 14] for i in
+             sr.integers(1, len(wtext) - 20, size=2600)]
+    wmany = [w for w in wmany if w.isalpha()][:2499] + ["ACGRYTNNSWKT"]
+    wt_many = build_tables(build_pattern_set(wmany, rev_comp=False), wdb,
+                           wc=True, textn=False)
+    psc = ConvScanner(wt_many, k=0, device=dev)
+    psc.use_host = False
+    if psc._radix_eligible() or wt_many.P <= psc._PBLOCK:
+        raise AssertionError("the degenerate set is not pattern-blocked")
+    scan_occupancy.launches = 0
+    got_pb = list(psc.scan(wdb.codes))
+    want_pb = grouped_host_scan(wt_many, wdb.codes)
+    if got_pb != want_pb or not got_pb:
+        raise AssertionError(f"pattern-blocked scan differs from the host "
+                             f"shift-and: {len(got_pb)} vs {len(want_pb)}")
+    log(f"pattern-blocked rung: P={wt_many.P} degenerate primers, n=2^20: "
+        f"{len(got_pb)} hits == native shift-and over pattern groups, "
+        f"scan_occupancy launches {scan_occupancy.launches}")
+    del psc
+
+    # 11. the many-pattern path: 50,000 literal 20-mers from the database
+    xpats = draw_patterns(codes, 50_000, 20)
+    xps = literal_pattern_set(xpats)
+    xtables = build_tables(xps, db, wc=False, textn=False)
+    xsc = ConvScanner(xtables, k=0, device=dev)
+    xsc.use_host = False
+    xhost = ConvScanner(xtables, k=0, device="cpu")
+    if xtables.P <= xsc._PBLOCK or not xsc._census_eligible(MAIN_N):
+        raise AssertionError("the 50,000-pattern batch left the census rung")
+    pre_n = 1 << 26
+    pre = codes[:pre_n]
+    t0 = time.perf_counter()
+    want_e, want_p = xhost.scan_seed_arrays(pre)
+    log(f"p50k host census (native threaded mer-hash) over 2^26: "
+        f"{len(want_e)} hits in {time.perf_counter() - t0:.3f} s")
+    scan_slots.launches = 0
+    got_e, got_p = xsc.scan_seed_arrays(pre)
+    if scan_slots.launches < 1:
+        raise AssertionError("p50k: the census never launched scan_slots")
+    if not (np.array_equal(got_e, want_e) and np.array_equal(got_p, want_p)) \
+            or not len(got_e):
+        raise AssertionError(f"p50k device census differs from the host "
+                             f"census: {len(got_e)} vs {len(want_e)} hits")
+    scan_slots.launches = 0
+    ends50, pids50 = xsc.scan_seed_arrays(codes)
+    p50k_launches = scan_slots.launches
+    if p50k_launches < 1 or len(np.unique(pids50)) != 50_000:
+        raise AssertionError(f"p50k at 2^28: {p50k_launches} launches, "
+                             f"{len(np.unique(pids50))} patterns found")
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e5, _p5 = xsc.scan_seed_arrays(codes)
+        secs.append(time.perf_counter() - t0)
+        if len(e5) != len(ends50):
+            raise AssertionError("repeated census changed its hit count")
+    s_p50k = statistics.median(secs)
+    log(f"p50k main path: scan_seed_arrays, n=2^28 resident, P=50000 "
+        f"20-mers on {smi}: {len(got_e)} hits == host census over 2^26; "
+        f"{len(ends50)} hits over 2^28 (every pattern found), scan_slots "
+        f"launches {p50k_launches}, {s_p50k:.6f} s per scan, "
+        f"{MAIN_N / s_p50k / 1e9:.3f} Gbases/s (host clock, median of 5)")
+    main_dev = xsc._device_form(codes)
+    mt50 = xsc._mer_dev()
+    cap50 = xsc._slot_cap_for(MAIN_N)
+    x_ms = cuda_ms(lambda: scan_slots(main_dev, MAIN_N, mt50, cap50), reps=10)
+    x_ref, x_plain = timed(lambda: scan_slots_ref(main_dev, MAIN_N, mt50,
+                                                  cap50))
+    slots_err = max(slots_err, check_slots(
+        "scan_slots check n=2^28, 50,000 20-mers",
+        scan_slots(main_dev, MAIN_N, mt50, cap50), x_ref, cap50, cap50))
+    log(f"scan_slots at n=2^28, 50000 20-mers (1 class) on {smi}: kernel "
+        f"{x_ms:.4f} ms, plain {x_plain:.4f} ms (CUDA events; equal)")
+    profile("p50k main path, scan_seed_arrays, n=2^28 resident",
+            lambda: xsc.scan_seed_arrays(codes), 3)
+    del x_ref, xhost
+
+    # 11b. the same 50,000 patterns at k = 1: halves, 100,000 half seeds
+    kpre_n = 1 << 24
+    pdb = prefix_db(db, kpre_n)
+    t0 = time.perf_counter()
+    mx_cpu = PrimerMatchModel(pdb, xps, k=1, indels=True, device="cpu")
+    want_k = mx_cpu.engine_hits_arrays()
+    log(f"xk1 CPU route (native census, inline gate, native extension) over "
+        f"2^24: {len(want_k[0])} engine hits in "
+        f"{time.perf_counter() - t0:.3f} s")
+    mx_pre = PrimerMatchModel(pdb, xps, k=1, indels=True, device=dev)
+    mx_pre.use_host = False
+    scan_slots.launches = gate_slots.launches = 0
+    got_k = mx_pre.engine_hits_arrays()
+    if min(scan_slots.launches, gate_slots.launches) < 1:
+        raise AssertionError("xk1 prefix run skipped a slot kernel")
+    if not all(np.array_equal(g, w) for g, w in zip(got_k, want_k)) \
+            or not len(got_k[0]):
+        raise AssertionError(f"xk1 device route differs from the CPU route: "
+                             f"{len(got_k[0])} vs {len(want_k[0])} hits")
+    del mx_cpu, mx_pre, pdb
+    t0 = time.perf_counter()
+    mx = PrimerMatchModel(db, xps, k=1, indels=True, device=dev)
+    mx.use_host = False
+    if mx.engine != "halves":
+        raise AssertionError(f"xk1 took engine {mx.engine}")
+    _o, xsc1, _b, xdirs, xext, xgeomB = mx._halves_ctx()
+    if xsc1.tables.P != 100_000 or not xsc1.gated_available(MAIN_N):
+        raise AssertionError("xk1: the slots route is not available")
+    mx.engine_hits_arrays()  # tables, gate, caps
+    log(f"xk1 set-up and first run (100,000 half seeds): "
+        f"{time.perf_counter() - t0:.3f} s")
+    scan_slots.launches = gate_slots.launches = 0
+    scan_occupancy.launches = seed_gate.launches = 0
+    hes, hp, hv = mx.engine_hits_arrays()
+    xk1_launches = {"scan_slots": scan_slots.launches,
+                    "gate_slots": gate_slots.launches,
+                    "scan_occupancy": scan_occupancy.launches,
+                    "seed_gate": seed_gate.launches}
+    if xk1_launches["scan_slots"] < 1 or xk1_launches["gate_slots"] < 1:
+        raise AssertionError(f"xk1 main path skipped a kernel: "
+                             f"{xk1_launches}")
+    if list(zip(hes.tolist(), hp.tolist(), hv.tolist())) != list(
+            mx.engine_hits()):
+        raise AssertionError("xk1: engine_hits_arrays differs from "
+                             "engine_hits")
+    if len(np.unique(hp)) != 50_000:
+        raise AssertionError(f"xk1: {len(np.unique(hp))} of 50000 patterns "
+                             "found")
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_k = mx.engine_hits_arrays()
+        secs.append(time.perf_counter() - t0)
+        if len(out_k[0]) != len(hes):
+            raise AssertionError("repeated xk1 run changed its hit count")
+    s_xk1 = statistics.median(secs)
+    gate_x = mx._engine_gate(xsc1, xdirs, xext, xgeomB, lambda p0: p0 + 1)
+    gt_x = xsc1._gate_dev(gate_x)
+    mt_x = xsc1._mer_dev()
+    slot_cap, surv_cap = xsc1._gated_caps(MAIN_N, True)
+    xslots = scan_slots(main_dev, MAIN_N, mt_x, slot_cap)
+    xsurv = gate_slots(main_dev, MAIN_N, xslots, mt_x.lengths, gt_x, True,
+                       surv_cap)
+    n_slots, n_surv = int(xslots[0]), int(xsurv[0])
+    if n_slots > slot_cap or n_surv > surv_cap:
+        raise AssertionError(f"xk1 caps overflow: {n_slots} slots (cap "
+                             f"{slot_cap}), {n_surv} survivors ({surv_cap})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        anchors_x, sids_x = xsc1.scan_gated(codes, gate_x, True, 1)
+    scan_x = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mx._halves_emit_arrays(anchors_x, xsc1._hid_lut_c[sids_x])
+    tail_x = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"xk1 main path: engine_hits_arrays, n=2^28 resident, 50000 20-mers "
+        f"at k=1 (100000 half seeds) on {smi}: {len(got_k[0])} engine hits "
+        f"== CPU route over 2^24; over 2^28 {n_slots} slots, {n_surv} gate "
+        f"survivors, {len(hes)} engine hits (every pattern found), launches "
+        f"{xk1_launches}, scan_gated (both kernels, row fetch) "
+        f"{scan_x:.3f} ms, host tail {tail_x:.3f} ms, {s_xk1:.6f} s per run, "
+        f"{MAIN_N / s_xk1 / 1e9:.3f} Gbases/s (host clock, median of 5)")
+    s_ms = cuda_ms(lambda: scan_slots(main_dev, MAIN_N, mt_x, slot_cap),
+                   reps=10)
+    g_ms = cuda_ms(lambda: gate_slots(main_dev, MAIN_N, xslots, mt_x.lengths,
+                                      gt_x, True, surv_cap), reps=10)
+    s_ref, s_plain = timed(lambda: scan_slots_ref(main_dev, MAIN_N, mt_x,
+                                                  slot_cap))
+    g_ref, g_plain = timed(lambda: gate_slots_ref(
+        main_dev, MAIN_N, xslots, mt_x.lengths, gt_x, True, surv_cap))
+    log(f"slot kernels at n=2^28, 100000 half seeds of 10 bases, k=1 on "
+        f"{smi}: scan_slots {s_ms:.4f} ms (plain {s_plain:.4f} ms), "
+        f"gate_slots {g_ms:.4f} ms (plain {g_plain:.4f} ms) (CUDA events)")
+    slots_err = max(slots_err, check_slots(
+        "scan_slots check n=2^28, 100,000 half seeds", xslots, s_ref,
+        slot_cap, slot_cap))
+    del s_ref
+    gslots_err = max(gslots_err, check_slots(
+        "gate_slots check n=2^28, k=1", xsurv, g_ref, surv_cap, surv_cap))
+    profile("xk1 main path, engine_hits_arrays, n=2^28 resident",
+            lambda: mx.engine_hits_arrays(), 3)
+    del main_dev, xslots, xsurv, g_ref, mx, xsc
+
+    # 12. pcr_match: the pair join over the resident database
+    from sequence_alignment_tools_tpu_torch.apps.pcr_match import (
+        build_pair_pattern_set,
+    )
+    from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
+
+    pcr_opts = {"ucdict": False, "rev_comp": True, "fplen": 0, "tplen": 0,
+                "stlen": 0, "edlen": 0}
+
+    def bench_pairs(text):
+        """bench.py's 10 STS-style pairs: 15-mers 800 bases apart."""
+        out = []
+        for i in range(10):
+            x = 100_000 + 170_000 * i
+            out += [text[x : x + 15], reverse_comp(text[x + 800 : x + 815])]
+        return out
+
+    pairs = bench_pairs(db.decode(0, 2_000_000))
+    mp = PcrMatchModel(db, build_pair_pattern_set(pairs, pcr_opts, [], []),
+                       k=0, maxdist=2000, rev_comp=True, device=dev)
+    mp.inner.use_host = False
+
+    def pair_key(h):
+        return (h.pid, h.pid1, h.pe, h.pe1, h.amplicon)
+
+    scan_occupancy.launches = 0
+    want_pairs = [pair_key(h) for h in mp.pairs()]
+    if scan_occupancy.launches < 1 or len(want_pairs) < 10:
+        raise AssertionError(f"pcr_match: {len(want_pairs)} pairs, "
+                             f"{scan_occupancy.launches} launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = [[pair_key(h) for h in run] for run in mp.pairs_stream(5)]
+    s_pcr = time.perf_counter() - t0
+    if runs != [want_pairs] * 5:
+        raise AssertionError("pcr_match pairs_stream differs from pairs")
+    log(f"pcr_match pairs_stream, n=2^28 resident, 10 pairs (P=40), k=0 on "
+        f"{smi}: {len(want_pairs)} pairs per run == pairs(), "
+        f"{s_pcr / 5:.6f} s per run, {5 * MAIN_N / s_pcr / 1e9:.3f} Gbases/s "
+        f"(host clock, 5 runs)")
+    del mp
+
+    # 13. CLI: device route and host route print the same bytes
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "corpus.fasta")
+        small = os.path.join(tmp, "small.fasta")
         pfile = os.path.join(tmp, "primers.txt")
         lfile = os.path.join(tmp, "long_primers.txt")
-        write_bench_corpus(fasta)
+        entry0 = write_bench_corpus(fasta)
+        write_bench_corpus(small, entries=1, entry_len=600_000)
         with open(pfile, "w") as f:
             f.write("\n".join(PATS) + "\n")
         with open(lfile, "w") as f:
             f.write("\n".join(LONG) + "\n")
+        pair_arg = " ".join(bench_pairs(entry0))
         pm = ["scan_occupancy"]
-        for pats_file, flags, need in (
-                (pfile, ["-r", "-c"], pm), (pfile, ["-r"], pm),
-                (pfile, ["-k", "1", "-r", "-c"], pm + ["seed_gate"]),
-                (pfile, ["-K", "1", "-r"], pm + ["seed_gate"]),
-                (pfile, ["-k", "1", "-r", "-3", "8"], pm + ["seed_gate"]),
-                (pfile, ["-k", "2", "-r", "-c"], ["myers_pairs"]),
-                (pfile, ["-k", "2", "-r"], ["myers_pairs"]),
-                (pfile, ["-K", "2", "-r"], pm),
-                (lfile, ["-k", "2", "-r"], ["sellers_scan"])):
-            argv = ["-i", fasta, "-P", pats_file] + flags
+        # the seed-table engines run on the small corpus: their candidate
+        # lists (every 4-base seed hit of the hash engine) are walked in
+        # Python, as in the JAX package
+        for tool, db_file, pats_flag, flags, need in (
+                ("primer_match", fasta, ["-P", pfile], ["-r", "-c"], pm),
+                ("primer_match", fasta, ["-P", pfile], ["-r"], pm),
+                ("primer_match", fasta, ["-P", pfile],
+                 ["-k", "1", "-r", "-c"], pm + ["seed_gate"]),
+                ("primer_match", fasta, ["-P", pfile], ["-K", "1", "-r"],
+                 pm + ["seed_gate"]),
+                ("primer_match", fasta, ["-P", pfile],
+                 ["-k", "1", "-r", "-3", "8"], pm + ["seed_gate"]),
+                ("primer_match", fasta, ["-P", pfile],
+                 ["-k", "2", "-r", "-c"], ["myers_pairs"]),
+                ("primer_match", fasta, ["-P", pfile], ["-k", "2", "-r"],
+                 ["myers_pairs"]),
+                ("primer_match", fasta, ["-P", pfile], ["-K", "2", "-r"], pm),
+                ("primer_match", fasta, ["-P", lfile], ["-k", "2", "-r"],
+                 ["sellers_scan"]),
+                ("primer_match", small, ["-P", pfile],
+                 ["-N", "6", "-k", "1", "-r"], ["scan_slots"]),
+                ("primer_match", small, ["-P", pfile],
+                 ["-N", "15", "-K", "2", "-r"], pm),
+                ("primer_match", small, ["-P", lfile],
+                 ["-N", "15", "-k", "2", "-r"], pm),
+                ("pcr_match", fasta, ["-p", pair_arg],
+                 ["-r", "-M", "2000"], pm),
+                ("pcr_match", fasta, ["-p", pair_arg],
+                 ["-r", "-M", "2000", "-k", "1"], pm + ["seed_gate"])):
+            argv = ["-i", db_file] + pats_flag + flags
+            long_set = pats_flag[1] == lfile
             os.environ["SAT_HOST_SCAN"] = "0"
-            scan_occupancy.launches = seed_gate.launches = 0
-            myers_pairs.launches = sellers_scan.launches = 0
+            for fn in (scan_occupancy, seed_gate, myers_pairs, sellers_scan,
+                       scan_slots, gate_slots):
+                fn.launches = 0
             t0 = time.perf_counter()
-            out_dev = run_cli(argv)
+            out_dev = run_cli(argv, tool)
             s_cli = time.perf_counter() - t0
             cli_launches = {"scan_occupancy": scan_occupancy.launches,
                             "seed_gate": seed_gate.launches,
                             "myers_pairs": myers_pairs.launches,
-                            "sellers_scan": sellers_scan.launches}
+                            "sellers_scan": sellers_scan.launches,
+                            "scan_slots": scan_slots.launches,
+                            "gate_slots": gate_slots.launches}
             del os.environ["SAT_HOST_SCAN"]
             # the long primers exceed one native Sellers machine: the
-            # host run takes the machines over pattern groups
-            with (split_host_route() if pats_file == lfile
+            # host run takes the machines over pattern groups (their gs
+            # templates exceed the native shift-and too: both runs then
+            # take the pattern-blocked rung, and the plants decide)
+            with (split_host_route() if long_set
                   else contextlib.nullcontext()):
-                out_host = run_cli(argv)
+                out_host = run_cli(argv, tool)
             if min(cli_launches[kname] for kname in need) < 1:
-                raise AssertionError(f"CLI {flags}: the device run skipped "
-                                     f"a kernel: {cli_launches}")
+                raise AssertionError(f"CLI {tool} {flags}: the device run "
+                                     f"skipped a kernel: {cli_launches}")
             if out_dev != out_host or not out_dev:
-                raise AssertionError(f"CLI {flags}: device and host outputs "
-                                     "differ")
-            log(f"CLI primer_match {' '.join(flags)}"
-                f"{' (long primers)' if pats_file == lfile else ''}: "
+                raise AssertionError(f"CLI {tool} {flags}: device and host "
+                                     "outputs differ")
+            if "-N" in flags and long_set and (
+                    cli_launches["scan_occupancy"] < 4
+                    or out_dev.count(">") < len(LONG)):
+                raise AssertionError(
+                    f"CLI gs over the long primers: {cli_launches}, "
+                    f"{out_dev.count('>')} hits for {len(LONG)} exact plants")
+            if tool == "pcr_match" and out_dev.count("\n") < 10:
+                raise AssertionError("CLI pcr_match found fewer than its 10 "
+                                     "planted pairs")
+            log(f"CLI {tool} {' '.join(flags)}"
+                f"{' (long primers)' if long_set else ''}"
+                f"{' (600,000-base corpus)' if db_file == small else ''}: "
                 f"{len(out_dev)} bytes, {out_dev.count(chr(10))} lines, "
                 f"device == host, device run {s_cli:.3f} s, launches "
                 f"{cli_launches}")
@@ -1153,6 +1645,17 @@ def main():
     # and pattern, about 5 operations each
     sel_bound = bound(SELLERS_N + 12 * sel_hits_n,
                       5 * 3 * SELLERS_N * st2.P)
+    # scan_slots: n bytes of text in, 8 bytes per slot out; one code roll
+    # step and one probe per start and length class, about 8 operations
+    slots_bound = bound(MAIN_N + 8 * n_slots,
+                        8 * MAIN_N * len(mt_x.lens))
+    # gate_slots: 8 bytes per slot and its extension window in, 8 bytes
+    # per survivor out; a slot needs at least k + 1 DP rows to be dropped,
+    # a survivor all Lg, of 2 band + 1 cells of about 4 operations
+    cells = 2 * gt_x.band + 1
+    gslots_bound = bound(
+        n_slots * (8 + gt_x.Lg + gt_x.band) + 8 * n_surv,
+        ((n_slots - n_surv) * (gt_x.k + 1) + n_surv * gt_x.Lg) * cells * 4)
     kernels = [{
         "name": "scan_occupancy",
         "route": "cuda",
@@ -1201,6 +1704,30 @@ def main():
         "plain_ms": sel_plain,
         "bound_ms": sel_bound[0],
         "bound_by": sel_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "scan_slots",
+        "route": "cuda",
+        "source": src + "seed_slots.cu",
+        "replaces": tpu + ":1125",
+        "launches": xk1_launches["scan_slots"],
+        "max_abs_err": slots_err,
+        "ms": s_ms,
+        "plain_ms": s_plain,
+        "bound_ms": slots_bound[0],
+        "bound_by": slots_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "gate_slots",
+        "route": "cuda",
+        "source": src + "gate_slots.cu",
+        "replaces": tpu + ":1334",
+        "launches": xk1_launches["gate_slots"],
+        "max_abs_err": gslots_err,
+        "ms": g_ms,
+        "plain_ms": g_plain,
+        "bound_ms": gslots_bound[0],
+        "bound_by": gslots_bound[1],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,7 @@ import sys
 
 _TOOLS = {
     "primer_match": ("primer_match", "main"),
+    "pcr_match": ("pcr_match", "main"),
 }
 
 

@@ -4,10 +4,10 @@ Port of ``sequence_alignment_tools_tpu/apps/primer_match.py``: the same
 options (``USAGE``, ``parse_args`` and ``load_patterns`` are the port's
 copies of the JAX app's), the same verbose protocol and the same output
 bytes, for exact search, for ``-k``/``-K`` through the pigeonhole engines
-(halves, bases) and for the k-edit and k-mismatch filter engine
-(``-k 2``, ``-K 2``).  ``-T`` (translated search) and the engines the
-model does not port yet (hash, gs) exit 1 with a message naming their
-ROADMAP item.
+(halves, bases), the k-edit and k-mismatch filter engine (``-k 2``,
+``-K 2``) and the seed-table engines (``-N 6`` hash, ``-N 15`` gs).
+``-T`` (translated search) exits 1 with a message naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -261,21 +261,18 @@ def run(opts, out) -> None:
     if v:
         for line in db_pick_report(db, opts["memmap"]):
             timestamp(line)
-    try:
-        model = PrimerMatchModel(
-            db,
-            ps,
-            k=opts["k"],
-            indels=opts["indels"],
-            wc=opts["wc"],
-            textn=opts["tn"],
-            dna_mut=opts["dna_mut"],
-            seedlen=opts["seedlen"],
-            node=opts["node"],
-            report_interval=opts["report_interval"],
-        )
-    except NotImplementedError as e:
-        _not_ported(str(e))
+    model = PrimerMatchModel(
+        db,
+        ps,
+        k=opts["k"],
+        indels=opts["indels"],
+        wc=opts["wc"],
+        textn=opts["tn"],
+        dna_mut=opts["dna_mut"],
+        seedlen=opts["seedlen"],
+        node=opts["node"],
+        report_interval=opts["report_interval"],
+    )
     if v:
         for line in select_report(db, ps, k=opts["k"], wc=opts["wc"],
                                   textn=opts["tn"], seedlen=opts["seedlen"],

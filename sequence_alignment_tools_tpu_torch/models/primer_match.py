@@ -3,21 +3,28 @@
 Port of ``sequence_alignment_tools_tpu/models/primer_match.py::PrimerMatchModel``
 with the JAX model's hit semantics and emission order, for the exact
 engines ``exact_kt``, ``exact_sa`` and ``suftree``, the pigeonhole (k > 0)
-engines ``halves`` (exact_halves) and ``bases`` (exact_bases), and the
-filter engine (filter_bitvec: ``-k`` with any k the pigeonhole engines do
-not take, and ``-K``).
+engines ``halves`` (exact_halves) and ``bases`` (exact_bases), the filter
+engine (filter_bitvec: ``-k`` with any k the pigeonhole engines do not
+take, and ``-K``), and the seed-table engines ``hash`` (hash_table) and
+``gs`` (gs_hash_table).
 
 - The pigeonhole engines scan their exact seeds on the device with the
-  extension gate (``ConvScanner.scan_gated``) and extend the survivors
-  with the native batched extension (``engine/extend.BatchSeedExtender``).
+  extension gate (``ConvScanner.scan_gated``: the fused route for at most
+  2048 seeds, the census and the slot gate for more) and extend the
+  survivors with the native batched extension
+  (``engine/extend.BatchSeedExtender``); on the CPU many seeds go through
+  the native census with its inline gate (``scan_seed_arrays``).
+- The seed-table engines take their seed hits from ``ConvScanner.scan``
+  (dense 4-base seeds: the census rung; gapped-seed templates: the fused
+  or pattern-blocked rung) and verify behind the per-pattern ``lastpos``
+  gate.
 - The filter engine takes its k-edit candidates from the Myers or
   Sellers kernel (``ops/sellers.SellersScanner``), or its k-mismatch
   candidates from the poisoned scan (``ConvScanner`` under ``-K``), then
   runs the reference's batch / cluster / verify host tail.
 
 The jax-free parts of the JAX module (engine selection, the verbose
-reports, ``Hit``) are the port's copies.  Not ported yet: ``hash`` and
-``gs`` (ROADMAP queue 1 item 6).
+reports, ``Hit``) are the port's copies.
 """
 
 from __future__ import annotations
@@ -39,14 +46,9 @@ from ..engine.verify import (
 from ..io.database import SeqDB
 from ..io.patterns import PatternSet
 from ..ops.conv_scan import ConvScanner
-from ..ops.gate import GateTables
+from ..ops.gate import ExtendGate, GateTables
 from ..ops.sellers import SellersScanner
-from ..ops.tables import build_tables
-
-_WAITING = {
-    "hash": "ROADMAP queue 1 item 6",
-    "gs": "ROADMAP queue 1 item 6",
-}
+from ..ops.tables import PatternTables, build_tables
 
 
 @dataclass
@@ -237,6 +239,13 @@ def select_report(db: SeqDB, ps: PatternSet, k: int, wc: bool, textn: bool,
                      % _KT_STYLE[pm - 10])
     elif pm == 14:
         lines.append("Using bitvector for exact halves...")
+    elif pm == 15:
+        from ..ops.gapped_seeds import select as gs_select
+
+        sch = gs_select(ps.min_len, k, indels)
+        if sch is not None:
+            lines.append("Using gapped seed set, scheme %s(n%d)"
+                         % (sch.name, sch.n))
     # TPU scan-path capability notice (this framework's analog of the
     # reference's engine announcements): patterns longer than the Mosaic
     # kernel halo fall back to the XLA conv path — a real perf cliff the
@@ -296,10 +305,6 @@ class PrimerMatchModel:
         self.seedlen = seedlen
         self.node = node
         self.engine = select_engine(db, ps, k, wc, seedlen, node)
-        if self.engine in _WAITING:
-            raise NotImplementedError(
-                "primer_match engine %r with k=%d is not ported yet (%s)"
-                % (self.engine, k, _WAITING[self.engine]))
         self.device = resolve_device(device)
         # verbose-mode progress reporter, attached to every scanner
         self.progress = None
@@ -311,6 +316,9 @@ class PrimerMatchModel:
                 k, eos, wc, textn, indels, dna_mut, yesno=True)
         if self.engine in ("halves", "bases"):
             self._extender = Extender(k, eos, wc, textn, indels, dna_mut)
+        if self.engine in ("hash", "gs"):
+            self._hash_aligner = EditDistAligner(
+                k, eos, wc, textn, indels, dna_mut, yesno=True)
 
     _tail_exec = None
     _tailproc_c = None
@@ -372,6 +380,8 @@ class PrimerMatchModel:
             "bases": self._bases_engine,
             "suftree": self._suftree_engine,
             "filter": self._filter_engine,
+            "hash": self._hash_engine,
+            "gs": self._gs_engine,
         }[self.engine]()
 
     _exact_ctx_c = None
@@ -580,20 +590,37 @@ class PrimerMatchModel:
 
     def _seed_candidates(self, scanner, dirs, ext_pats, geomB, hid_of):
         """(ends [C] int64, hids [C] int64) seed-hit candidates of a
-        pigeonhole engine, in no order.  The gated route (the device seed
-        scan and extension gate, ``ConvScanner.scan_gated``) takes every
-        scan it is available for and returns only the gate's survivors,
-        a superset of the candidates whose exact extension succeeds, so
-        the engine output does not change; other scans (the host rung)
-        iterate ``scanner.scan``.  ``dirs``/``ext_pats``/``geomB`` are
-        indexed by engine seed id; ``hid_of`` maps the scanner's 0-based
-        pattern index to that id."""
+        pigeonhole engine, in no order, by whichever route the scanner
+        takes (the JAX order):
+
+        - the gated route (``ConvScanner.scan_gated``: the device seed
+          scan and extension gate) for every scan it is available for;
+        - else the array-native census (``scan_seed_arrays``, unsorted:
+          the emit tails re-order anyway), with the native inline prefix
+          gate on the CPU or the slot gate on the device;
+        - else the ``scanner.scan`` generator (the host rung).
+
+        Each gate keeps a superset of the candidates whose exact
+        extension succeeds, so the engine output does not depend on the
+        route.  ``dirs``/``ext_pats``/``geomB`` are indexed by engine
+        seed id; ``hid_of`` maps the scanner's 0-based pattern index to
+        that id."""
         codes = self.db.codes
         if scanner.gated_available(len(codes)):
             gate = self._engine_gate(scanner, dirs, ext_pats, geomB, hid_of)
             anchors, sids0 = scanner.scan_gated(codes, gate, self.indels,
                                                 self.k)
             return anchors, self._hid_lut(scanner, hid_of)[sids0]
+        if scanner.census_on_device():
+            gates = {"ext_gate": ExtendGate(self._engine_gate(
+                scanner, dirs, ext_pats, geomB, hid_of), self.indels)}
+        else:
+            gates = {"gate": self._census_gate(scanner, dirs, ext_pats,
+                                               hid_of)}
+        arrays = scanner.scan_seed_arrays(codes, sort=False, **gates)
+        if arrays is not None:
+            ends, pids0 = arrays
+            return ends, self._hid_lut(scanner, hid_of)[pids0]
         ends_l = []
         hids_l = []
         for end, p0, _ in scanner.scan(codes):
@@ -601,6 +628,49 @@ class PrimerMatchModel:
             hids_l.append(hid_of(p0))
         return (np.asarray(ends_l, np.int64),
                 np.asarray(hids_l, np.int64))
+
+    _census_gate_c = None
+
+    def _census_gate(self, scanner, dirs, ext_pats, hid_of):
+        """The native census's inline prefix extension gate
+        (``native/shift_and.cpp::mer_gate_pass``): per seed the walk
+        direction and the first k + 4 extension CODES (6 for k <= 2, the
+        packed record's capacity).  A superset filter: it charges a
+        substitution or indel 1 and an unknown character a plain mismatch,
+        so what it drops cannot survive the exact extension.  None when it
+        does not apply (wildcard or compat accepts, substitution-cost
+        maps, databases whose characters are not code-faithful)."""
+        if self._census_gate_c is not None \
+                and self._census_gate_c[0] is scanner:
+            return self._census_gate_c[1]
+        spec = None
+        k = self.k
+        if (not self.wc and not self.textn and not self.dna_mut
+                and 1 <= k <= 8
+                and getattr(self.db, "decode_chars", None) is None):
+            S = scanner.tables.P
+            G = 6 if k <= 2 else k + 4
+            band = k if self.indels else 0
+            c2c = {chr(b): i for i, b in enumerate(bytes(self.db.table))}
+            gdir = np.zeros(S, np.int8)
+            gpref = np.zeros((S, G), np.uint8)
+            gglen = np.zeros(S, np.uint8)
+            for pid0 in range(S):
+                hid = hid_of(pid0)
+                d = int(dirs[hid])
+                walk = ext_pats[hid]
+                if d <= 0:
+                    walk = walk[::-1]
+                gl = min(len(walk), G)
+                for j in range(gl):
+                    gpref[pid0, j] = c2c.get(walk[j], 0xFE)
+                gdir[pid0] = 0 if gl == 0 else (1 if d > 0 else -1)
+                gglen[pid0] = gl
+            spec = (np.ascontiguousarray(gdir),
+                    np.ascontiguousarray(gpref.reshape(-1)),
+                    np.ascontiguousarray(gglen), G, int(k), int(band))
+        self._census_gate_c = (scanner, spec)
+        return spec
 
     _gate_cache = None
 
@@ -717,6 +787,157 @@ class PrimerMatchModel:
                 (-sids[okidx], -slen[sids[okidx]], ends[okidx]))]
         for i in sub:
             yield int(hend[i]), owner[int(sids[i])], int(value[i])
+
+    # -- the seed-table engines: hash_table and gs_hash_table ---------------
+
+    def _hash_engine(self):
+        """hash_table / rand_hash_table (hash_table.cc:66-226): every
+        pattern is indexed at EVERY ws-character seed offset; each text
+        seed match projects a candidate pattern end, gated by a
+        per-pattern ``lastpos`` window and verified with a yes/no banded
+        DP.  Hash cells are lists built with push_front, so co-located
+        candidates process in reverse insertion order (pattern desc,
+        offset desc)."""
+        ps, k = self.ps, self.k
+        ws = self.seedlen if self.seedlen > 0 else 4
+        seeds: list[str] = [""]
+        owner: list[tuple[int, int]] = [(0, 0)]
+        for pid in range(1, ps.n_total + 1):
+            pat = ps.pattern(pid)
+            for j in range(ws - 1, len(pat)):
+                seeds.append(pat[j + 1 - ws : j + 1])
+                owner.append((pid, j))
+        seed_ps = PatternSet(patterns=seeds, esb=[0] * len(seeds),
+                             eeb=[0] * len(seeds), n_forward=len(seeds) - 1)
+        tables = build_tables(seed_ps, self.db, wc=False, textn=False)
+        scanner = self._attach(ConvScanner(tables, k=0, device=self.device))
+        # (pos asc, seed index desc): scan order with push_front cell lists
+        cands = sorted(
+            ((end, -(s0 + 1)) for end, s0, _ in scanner.scan(self.db.codes))
+        )
+        if k == 0:
+            for end, negs in cands:
+                pid, _j = owner[-negs]
+                yield end, pid, 0
+            return
+        pids = np.fromiter((owner[-negs][0] for _, negs in cands), np.int64,
+                           len(cands))
+        patends = np.fromiter(
+            (end + len(ps.pattern(owner[-negs][0])) - owner[-negs][1] - 1
+             for end, negs in cands), np.int64, len(cands))
+        yield from self._lastpos_verify(pids, patends)
+
+    def _lastpos_verify(self, pids, patends):
+        """The per-pattern ``lastpos`` gate and yes/no verify of
+        hash_table.cc:179-226, the verifies batched (one native call per
+        chunk).  A gated-out candidate's verify is simply unused: the
+        align is pure, so the output equals the sequential loop's."""
+        from ..engine.verify import BatchVerifier
+
+        ps, k = self.ps, self.k
+        verifier = BatchVerifier(
+            self._hash_aligner, self.db,
+            [ps.pattern(pid) for pid in range(1, ps.n_total + 1)],
+            [ps.esb[pid] for pid in range(1, ps.n_total + 1)],
+            [ps.eeb[pid] for pid in range(1, ps.n_total + 1)],
+        )
+        band = k if self.indels else 0
+        lastpos = [0] * (ps.n_total + 1)
+        CH = 1 << 15
+        for c0 in range(0, len(pids), CH):
+            pc = pids[c0 : c0 + CH]
+            pe = patends[c0 : c0 + CH]
+            found, aend, aval = verifier(
+                (pc - 1).astype(np.int32), pe - band, pe + band)
+            for i in range(len(pc)):
+                pid = int(pc[i])
+                patend = int(pe[i])
+                if lastpos[pid] + band < patend:
+                    if found[i]:
+                        e = int(aend[i])
+                        if lastpos[pid] + band < e:
+                            lastpos[pid] = e
+                            yield e, pid, int(aval[i])
+                        else:
+                            lastpos[pid] = patend
+                    else:
+                        lastpos[pid] = patend
+
+    def _gs_engine(self):
+        """gs_hash_table (gs_hash_table.cc:268-487): gapped-seed-set
+        filtration.  Each (pattern, window offset, template) registers the
+        template-sampled pattern characters; a text window is a candidate
+        when its sampled characters all match, evaluated as one sparse
+        scan (zero weight at unsampled positions, threshold = l), then
+        the ``lastpos`` dedup and yes/no banded verify of hash_table.
+
+        Emission order per text position: template asc, then reverse
+        registration (pattern desc, offset desc) like the push_front hash
+        cells; ``patend`` clamps to the pattern length near the stream
+        start (gs_hash_table.cc:430-437)."""
+        from ..ops.gapped_seeds import select as gs_select
+
+        ps, k = self.ps, self.k
+        scheme = gs_select(ps.min_len, k, self.indels)
+        if scheme is None:
+            raise SelectionError(
+                "no gapped seed scheme for this pattern set"
+            )
+        m, L = scheme.m, scheme.l
+        db = self.db
+        # sparse seed table: one row per (pattern, offset, template)
+        entries = []  # (pid, j, templ)
+        for pid in range(1, ps.n_total + 1):
+            pat = ps.pattern(pid)
+            for j in range(0, len(pat) - m + 1):
+                for t in range(scheme.n):
+                    entries.append((pid, j, t))
+        P = len(entries)
+        # the text window spans tmax = max txtpos + 1 positions
+        tmax = max(max(r) for r in scheme.txtpos) + 1
+        alpha = db.alphabet_size
+        match = np.zeros((P, tmax, alpha), dtype=bool)
+        lengths = np.full(P, L, dtype=np.int32)
+        for row, (pid, j, t) in enumerate(entries):
+            pat = ps.pattern(pid)
+            ok = True
+            for pp, tp in zip(scheme.patpos[t], scheme.txtpos[t]):
+                code = db.nch(pat[j + pp])
+                if code < 0:
+                    ok = False
+                    break
+                match[row, tp, code] = True
+            if not ok:
+                match[row] = False
+        tables = PatternTables(
+            match=match, lengths=lengths,
+            pat_codes=np.full((P, tmax), -1, dtype=np.int16),
+            Lmax=tmax, alpha=alpha, eos_code=db.eos_code,
+        )
+        # gap columns are never-accepting weight columns, so the template
+        # scan takes the scanner's ordinary rungs (the host machine for a
+        # one-shot run, the fused or pattern-blocked route otherwise)
+        scanner = self._attach(ConvScanner(tables, k=0, device=self.device))
+        cands = []
+        for end, row, _ in scanner.scan(db.codes):
+            win_start = end - L  # ConvScanner end = start + lengths
+            pid, j, t = entries[row]
+            # (window end pos, template asc, pattern desc, offset desc)
+            cands.append((win_start + tmax, t, -pid, -j))
+        cands.sort()
+        pids_l = []
+        patends_l = []
+        for oldpos, t, negpid, negj in cands:
+            pid, j = -negpid, -negj
+            patlen = len(ps.pattern(pid))
+            if oldpos > patlen:
+                patend = oldpos + patlen - tmax - j
+            else:
+                patend = patlen
+            pids_l.append(pid)
+            patends_l.append(patend)
+        yield from self._lastpos_verify(
+            np.asarray(pids_l, np.int64), np.asarray(patends_l, np.int64))
 
     # -- the filter engine: k-edit / k-mismatch candidates, clusters -------
 

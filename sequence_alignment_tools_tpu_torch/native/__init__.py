@@ -17,8 +17,8 @@ on a file lock, so a stale or half-written library is never loaded.
   filter -> verify pipeline, the seed extension and the pair sort.
 - ``fasta_pack.cpp``: FASTA pass 1 (parse, filter, uppercase, EOS layout).
 - ``sais.cpp``: SA-IS suffix array construction.
-- ``shift_and.cpp``: the host shift-and and Sellers row machines and the
-  last-hit dedup.
+- ``shift_and.cpp``: the host shift-and and Sellers row machines, the
+  threaded mer-hash census with its inline gate, and the last-hit dedup.
 """
 
 from __future__ import annotations
@@ -190,6 +190,32 @@ def load_shift_and_lib():
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # k, poison, eos
         ctypes.c_int32, ctypes.c_int32,        # halo, nthreads
         c_i64p, c_i32p, c_i32p, ctypes.c_int64,  # out_end/bit/mism, cap
+    ]
+    c_i8p = ctypes.POINTER(ctypes.c_int8)
+    lib.sat_mer_scan.restype = ctypes.c_int64
+    lib.sat_mer_scan.argtypes = [
+        c_u8p, ctypes.c_int64, ctypes.c_int32,  # codes, n, L
+        ctypes.c_int64,                         # alpha
+        c_u64p, c_i32p, c_i32p, c_i32p,         # keys, head, enext, epid
+        ctypes.c_int64, c_u64p,                 # tsize, bloom
+        ctypes.c_int32,                         # bloom_bits
+        c_i8p, c_u8p, c_u8p,                    # gate dir/pref/glen
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # G, gk, gband
+        c_u64p,                                 # gate_pack (or NULL)
+        ctypes.c_int32,                         # nthreads
+        c_i64p, c_i32p, ctypes.c_int64,         # out_start/pid, cap
+    ]
+    lib.sat_mer_scan_d4.restype = ctypes.c_int64
+    lib.sat_mer_scan_d4.argtypes = [
+        c_u8p, c_u8p,                           # codes, 2-bit pack
+        c_i64p, ctypes.c_int64,                 # bad positions, nbad
+        ctypes.c_int64, ctypes.c_int32,         # n, L
+        c_i32p, c_i32p, c_i32p,                 # head4, enext, epid
+        c_u64p,                                 # presence bitmap
+        ctypes.c_int32, ctypes.c_int32,         # gk, gband
+        c_u64p,                                 # gate_pack (or NULL)
+        ctypes.c_int32,                         # nthreads
+        c_i64p, c_i32p, ctypes.c_int64,         # out_start/pid, cap
     ]
     lib.sat_lasthit_dedup.restype = ctypes.c_int64
     lib.sat_lasthit_dedup.argtypes = [

@@ -16,13 +16,22 @@ with ``W`` the conv weights (EOS poison under ``poison_eos``).
 2. sharded: not ported (ROADMAP queue 1 item 11), raises;
 3. host: the native shift-and machine (:class:`.host_scan.HostShiftAnd`,
    the port's copy of the JAX package's) for small scans;
-4. radix census for dense exact seeds: not ported (ROADMAP queue 1
-   item 3), raises;
-5. the fused device route for every other scan, at any length, pattern
+4. census, for dense exact seeds and for literal pattern sets past
+   ``_PBLOCK`` (k = 0, n >= 2^18): one base-alpha window code and one hash
+   probe per window start and distinct pattern length, whatever the
+   number of patterns.  On a CUDA device :func:`.cuda.slots.scan_slots`
+   (the kernel ``seed_slots.cu``); on the CPU the native threaded
+   mer-hash census (``native/shift_and.cpp::sat_mer_scan``), or, with the
+   host machines off, the plain version of ``scan_slots``.  The JAX
+   scanner ran this rung on the host only;
+5. pattern-blocked, for pattern sets past ``_PBLOCK`` that the census
+   does not take (wildcards, gapped-seed templates): one fused pass per
+   ``_PBLOCK`` patterns over the same resident text, all dispatched
+   before any row is fetched;
+6. the fused device route for every other scan, at any length, pattern
    length and alphabet: :func:`.cuda.scan_kernel.scan_hits` (CUDA filter
    kernel, compaction, exact rescore) in one packed row per scan, with
-   cap pre-sizing and an overflow retry.  Pattern sets past ``_PBLOCK``
-   (pattern-blocked, ROADMAP queue 1 item 3) raise.
+   cap pre-sizing and an overflow retry.
 
 The JAX scanner's other device routes (the XLA block path, the bit-plane
 and seam modes for wide alphabets) are layouts for the TPU; the CUDA
@@ -34,9 +43,12 @@ The pigeonhole (k > 0) engines scan their exact seeds through the gated
 route instead (:meth:`ConvScanner.scan_gated`, :meth:`scan_gated_stream`):
 the same filter, then :func:`.cuda.seed_gate.seed_gate`, which enumerates
 every seed hit in the candidate microblocks and keeps the extension gate's
-survivors.  It names every seed at every start, so the JAX route's escape
-list (multi-seed starts, EOS windows, slot overflows rescanned on the
-host) and its slot, chain and fold machinery have no counterpart.
+survivors.  Past ``_PBLOCK`` seeds the gated route is the census and the
+slot gate instead (:func:`.cuda.slots.slot_gated_hits`: ``seed_slots.cu``,
+then ``gate_slots.cu`` over the slot list, which stays on the device).
+Both name every seed at every start, so the JAX route's escape list
+(multi-seed starts, EOS windows, slot overflows rescanned on the host) and
+its chain and fold machinery have no counterpart.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ import torch
 from ..device import resolve_device
 from .cuda.scan_kernel import long_form, scan_hits
 from .cuda.seed_gate import gated_hits
+from .cuda.slots import MerTables, scan_slots, slot_gated_hits
 from .tables import device_tables
 
 
@@ -95,6 +108,13 @@ class ConvScanner:
         self._radix_ok_c = None
         self._routes_done = None
         self._gt_dev = None
+        self._by_len_c = None
+        self._mer_tables_c = None
+        self._mer_dev_c = None
+        self._mer_outbuf_c = None
+        self._mer_gpack_c = None
+        self._mer_pack_cc = None
+        self._pblock_subs_c = None
 
     def _tables_dev(self):
         if self._dt is None:
@@ -165,13 +185,6 @@ class ConvScanner:
         return self._cap_mb, self._hit_cap
 
     # -- the fused device route ---------------------------------------------
-
-    def _check_fused(self) -> None:
-        t = self.tables
-        if t.P > self._PBLOCK:
-            raise NotImplementedError(
-                "pattern-blocked scans (P = %d > %d) are not ported yet "
-                "(ROADMAP queue 1 item 3)" % (t.P, self._PBLOCK))
 
     def _dispatch(self, codes_dev, n: int, cap_mb: int, hit_cap: int):
         return scan_hits(codes_dev, n, self._tables_dev(), self._eos,
@@ -248,7 +261,12 @@ class ConvScanner:
             depth = self._STREAM_DEPTH
         depth = max(int(depth), 1)
         self._check_mesh()
-        self._check_fused()
+        if self.tables.P > self._PBLOCK:
+            # huge pattern sets stream block by block through the census
+            # or the pattern-blocked scan (itself pipelined across passes)
+            for i, codes in enumerate(blocks):
+                yield i, list(self.scan(codes))
+            return
         pending = deque()
         for i, codes in enumerate(blocks):
             n = len(codes)
@@ -285,23 +303,58 @@ class ConvScanner:
 
     # -- the gated route (pigeonhole k > 0 engines) --------------------------
 
-    # The gated route's candidate-microblock cap is every microblock of the
+    # The fused route's candidate-microblock cap is every microblock of the
     # scan: it only sizes compact_mask's index buffer on the device (8 bytes
     # per 32 positions, never fetched), so the filter's list cannot
-    # overflow and a new scanner's first scan runs once.  The survivor cap
-    # sizes the row the host fetches: it starts small and an overflow
-    # retry grows it stickily.
+    # overflow and a new scanner's first scan runs once.  The slots route's
+    # slot cap sizes the slot list, which stays on the device: it starts
+    # from the expected seed hits on random text plus a few hits per seed.
+    # The survivor cap sizes the row the host fetches: it starts small (on
+    # the slots route at two survivors per seed) and an overflow retry
+    # grows either cap stickily.
     _gsurv_cap = 1 << 12
+    _slot_cap = 1 << 12
+    _CAP_MAX = 1 << 29  # a row [count, cap, cap] keeps int32 offsets
 
-    def _gated_caps(self, n: int) -> tuple[int, int]:
+    @staticmethod
+    def _pow2(x: int) -> int:
+        return 1 << (max(int(x), 1) - 1).bit_length()
+
+    def _slot_cap_for(self, n: int) -> int:
+        want = int(self._expected_hits(n) * 1.25) + 4 * self.tables.P
+        self._slot_cap = min(max(self._slot_cap, self._pow2(want)),
+                             self._CAP_MAX)
+        return self._slot_cap
+
+    def _slots_caps(self, n: int) -> tuple[int, int]:
+        self._gsurv_cap = min(
+            max(self._gsurv_cap, self._pow2(2 * self.tables.P)),
+            self._CAP_MAX)
+        return self._slot_cap_for(n), self._gsurv_cap
+
+    def _gated_caps(self, n: int, slots: bool = False) -> tuple[int, int]:
+        if slots:
+            return self._slots_caps(n)
         return max(-(-n // self._MB), 1), self._gsurv_cap
+
+    def census_on_device(self) -> bool:
+        """Whether a census runs through :func:`.cuda.slots.scan_slots` on
+        the scanner's device: always on a CUDA device, and on the CPU only
+        with the host machines off (its plain version, for the tests)."""
+        return (self.device.type == "cuda" or self.use_host is False
+                or os.environ.get("SAT_HOST_SCAN", "1") == "0")
+
+    def _slots_ok(self) -> bool:
+        return self._radix_eligible() and self.census_on_device()
 
     def gated_available(self, n: int) -> bool:
         """Whether :meth:`scan_gated` takes a seed scan of ``n``
-        positions: every scan of at most ``_PBLOCK`` seeds over a resident
-        array that the host rung does not take."""
-        return (self.mesh is None and self.tables.P <= self._PBLOCK
-                and n <= self._RESIDENT_MAX and not self._host_eligible(n))
+        positions: every scan over a resident array that the host rung
+        does not take, of at most ``_PBLOCK`` seeds (the fused route) or of
+        more literal seeds on a device census (the slots route)."""
+        return (self.mesh is None and n <= self._RESIDENT_MAX
+                and not self._host_eligible(n)
+                and (self.tables.P <= self._PBLOCK or self._slots_ok()))
 
     def _gate_dev(self, gt):
         """``gt`` on the scanner's device, kept for the last gate seen."""
@@ -310,36 +363,50 @@ class ConvScanner:
         return self._gt_dev[1]
 
     def _gated_dispatch(self, codes_dev, n: int, gt_dev, indels: bool,
-                        caps):
+                        caps, slots: bool):
+        if slots:
+            return slot_gated_hits(codes_dev, n, self._mer_dev(), gt_dev,
+                                   indels, *caps)
         return gated_hits(codes_dev, n, self._tables_dev(), gt_dev,
                           self._eos, indels, *caps)
 
     def _gated_decode(self, packed, codes_dev, n: int, gt_dev, indels: bool,
-                      caps):
+                      caps, slots: bool):
         """(anchors int64, sids int32) from a fetched gated row, retrying
-        with the survivor cap grown past the true count on overflow."""
-        count = int(packed[1])
-        if count > caps[1]:
-            self._gsurv_cap = max(self._gsurv_cap,
-                                  1 << (count - 1).bit_length())
-            caps = (caps[0], self._gsurv_cap)
-            packed = self._gated_dispatch(codes_dev, n, gt_dev, indels, caps)
+        with the overflowed cap grown past its true count."""
+        first, count = int(packed[0]), int(packed[1])
+        if first > caps[0] or count > caps[1]:
+            if max(first, count) > self._CAP_MAX or min(first, count) < 0:
+                raise RuntimeError(
+                    f"gated scan: {first} seed hits, {count} survivors "
+                    f"exceed one row ({self._CAP_MAX}); scan in blocks")
+            if slots:
+                self._slot_cap = max(self._slot_cap, self._pow2(first))
+            self._gsurv_cap = max(self._gsurv_cap, self._pow2(count))
+            caps = self._gated_caps(n, slots)
+            packed = self._gated_dispatch(codes_dev, n, gt_dev, indels, caps,
+                                          slots)
             return self._gated_decode(packed.cpu().numpy(), codes_dev, n,
-                                      gt_dev, indels, caps)
+                                      gt_dev, indels, caps, slots)
         cap = caps[1]
         return (packed[2 : 2 + count].astype(np.int64),
                 packed[2 + cap : 2 + cap + count].astype(np.int32))
 
-    def _gated_gate(self, gate, k: int):
+    def _gated_gate(self, gate, k: int, slots: bool):
         self._check_mesh()
-        self._check_fused()
         gt = gate.t if hasattr(gate, "t") else gate
         if gt.k != k:
             raise ValueError(f"gate tables built for k={gt.k}, scan asks "
                              f"k={k}")
-        self._route("gated CUDA seed scan + extension gate"
-                    if self.device.type == "cuda"
-                    else "gated seed scan (plain PyTorch on the CPU)")
+        if slots and not self._slots_ok():
+            raise ValueError(
+                "gated scan of %d seeds (> %d) needs literal seeds and a "
+                "device census: ask gated_available first"
+                % (self.tables.P, self._PBLOCK))
+        on = "CUDA" if self.device.type == "cuda" else "plain PyTorch, CPU"
+        self._route(("gated seed census + slot gate (%d seeds; %s)"
+                     % (self.tables.P, on)) if slots
+                    else "gated seed scan + extension gate (%s)" % on)
         return self._gate_dev(gt)
 
     def scan_gated(self, codes: np.ndarray, gate, indels: bool, k: int):
@@ -356,10 +423,17 @@ class ConvScanner:
         """Pipelined :meth:`scan_gated` over an iterator of flat code
         arrays, with :meth:`scan_stream`'s transport: block i + 1 ... i +
         depth are dispatched before block i's row is read from pinned
-        host memory behind its event.  Yields (block_index, anchors, sids)
-        in order."""
+        host memory behind its event.  At most ``_PBLOCK`` seeds take the
+        fused route (filter, ``seed_gate``), more take the slots route
+        (``scan_slots``, ``gate_slots``).  Yields (block_index, anchors,
+        sids) in order."""
+        return self._gated_stream(blocks, gate, indels, k, depth,
+                                  self.tables.P > self._PBLOCK)
+
+    def _gated_stream(self, blocks, gate, indels: bool, k: int, depth,
+                      slots: bool):
         depth = max(int(depth or self._STREAM_DEPTH), 1)
-        gt_dev = self._gated_gate(gate, k)
+        gt_dev = self._gated_gate(gate, k, slots)
         pending = deque()
         for i, codes in enumerate(blocks):
             n = len(codes)
@@ -367,23 +441,25 @@ class ConvScanner:
                 pending.append((i, None, None, None, 0, None))
             else:
                 dev = self._device_form(codes)
-                caps = self._gated_caps(n)
-                packed = self._gated_dispatch(dev, n, gt_dev, indels, caps)
+                caps = self._gated_caps(n, slots)
+                packed = self._gated_dispatch(dev, n, gt_dev, indels, caps,
+                                              slots)
                 host, ev = self._to_host(packed)
                 pending.append((i, host, ev, dev, n, caps))
             if len(pending) >= depth:
-                yield self._gated_drain(pending.popleft(), gt_dev, indels)
+                yield self._gated_drain(pending.popleft(), gt_dev, indels,
+                                        slots)
         while pending:
-            yield self._gated_drain(pending.popleft(), gt_dev, indels)
+            yield self._gated_drain(pending.popleft(), gt_dev, indels, slots)
 
-    def _gated_drain(self, item, gt_dev, indels: bool):
+    def _gated_drain(self, item, gt_dev, indels: bool, slots: bool):
         i, host, ev, dev, n, caps = item
         if host is None:
             return i, np.zeros(0, np.int64), np.zeros(0, np.int32)
         if ev is not None:
             ev.synchronize()
         return (i,) + self._gated_decode(host.numpy(), dev, n, gt_dev,
-                                         indels, caps)
+                                         indels, caps, slots)
 
     # -- host machine --------------------------------------------------------
 
@@ -416,6 +492,413 @@ class ConvScanner:
             ok = not bool((np.asarray(t.pat_codes) < 0)[live].any())
         self._radix_ok_c = ok
         return ok
+
+    # -- the census (dense exact seeds, huge literal pattern sets) -----------
+
+    def _census_eligible(self, n: int) -> bool:
+        """The census rung's routing test: an exact scan of at least 2^18
+        positions whose seeds are dense (the two-level filter would fire
+        on nearly every microblock) or number more than ``_PBLOCK``, over
+        literal patterns."""
+        est = self._expected_hits(n)
+        nmb = max(n // self._MB, 1)
+        return (self.k == 0 and n >= (1 << 18)
+                and (est * 4 >= nmb or self.tables.P > self._PBLOCK)
+                and self._radix_eligible())
+
+    def _by_len(self):
+        """{length: [(code, pid0)]}: the base-alpha code of every pattern,
+        by pattern length, built once per scanner."""
+        if self._by_len_c is None:
+            t = self.tables
+            alpha = t.alpha
+            by_len: dict[int, list] = {}
+            lens = t.lengths.astype(np.int64)
+            pc = np.asarray(t.pat_codes, np.int64)
+            for L in np.unique(lens):
+                L = int(L)
+                sel = np.flatnonzero(lens == L)
+                codes_L = np.zeros(len(sel), np.int64)
+                for j in range(L):
+                    codes_L = codes_L * alpha + pc[sel, j]
+                by_len[L] = list(zip(codes_L.tolist(), sel.tolist()))
+            self._by_len_c = by_len
+        return self._by_len_c
+
+    def _mer_tables(self):
+        """{length: (keys, head, enext, epid, tsize, bloom, bloom_bits,
+        head4, enext4, bit4)}: one open-addressing hash table per pattern
+        length (4x load-factor headroom, duplicate codes chained), built
+        once per scanner.  The native census and the device census
+        (:class:`.cuda.slots.MerTables`) probe the same tables; the bloom
+        prefilter and the direct-address sidecar serve the native one."""
+        if self._mer_tables_c is not None:
+            return self._mer_tables_c
+        t = self.tables
+        tabs = {}
+        for L, entries in self._by_len().items():
+            P_L = len(entries)
+            tsize = 1 << max(int(np.ceil(np.log2(4 * P_L + 1))), 4)
+            keys = np.full(tsize, ~np.uint64(0), np.uint64)
+            head = np.full(tsize, -1, np.int32)
+            enext = np.full(P_L, -1, np.int32)
+            epid = np.zeros(P_L, np.int32)
+            GOLD = 0x9E3779B97F4A7C15
+            U64 = (1 << 64) - 1
+            mask = tsize - 1
+            # bloom prefilter sized to the pattern count: about 2^5 bits
+            # per key keep its false positives near 3% while it stays
+            # cache-resident
+            bloom_bits = min(max(19, P_L.bit_length() + 5), 26)
+            bloom = np.zeros(1 << (bloom_bits - 6), np.uint64)
+            GOLD2 = 0xC2B2AE3D27D4EB4F
+            bshift = 64 - bloom_bits
+            for e, (c, pi) in enumerate(entries):
+                epid[e] = pi
+                b = ((c * GOLD2) & U64) >> bshift
+                bloom[b >> 6] |= np.uint64(1 << (b & 63))
+                slot = (((c * GOLD) & U64) >> 32) & mask
+                while keys[slot] != ~np.uint64(0) \
+                        and keys[slot] != np.uint64(c):
+                    slot = (slot + 1) & mask
+                if keys[slot] == ~np.uint64(0):
+                    keys[slot] = np.uint64(c)
+                    head[slot] = e
+                else:  # duplicate code: push onto the chain
+                    enext[e] = head[slot]
+                    head[slot] = e
+            # direct-address sidecar for base-4 (DNA) classes with
+            # 2L <= 22 index bits: head4[code4] replaces the bloom test,
+            # the key compare and the open-addressing walk
+            # (shift_and.cpp::mer_scan_range_d4)
+            head4 = enext4 = bit4 = None
+            if 2 * L <= 22 and P_L:
+                pids_L = np.fromiter((pi for _, pi in entries), np.int64,
+                                     P_L)
+                dig = np.asarray(t.pat_codes, np.int64)[pids_L, :L]
+                if (dig >= 0).all() and (dig < 4).all():
+                    code4 = np.zeros(P_L, np.int64)
+                    for j in range(L):
+                        code4 = (code4 << 2) | dig[:, j]
+                    head4 = np.full(1 << (2 * L), -1, np.int32)
+                    enext4 = np.full(P_L, -1, np.int32)
+                    for e, c4 in enumerate(code4.tolist()):
+                        enext4[e] = head4[c4]
+                        head4[c4] = e
+                    # exact presence bitmap (4^L bits): the sweep tests
+                    # it instead of touching the head table per position
+                    packed = np.packbits(head4 >= 0, bitorder="little")
+                    if len(packed) % 8:
+                        packed = np.concatenate(
+                            [packed, np.zeros(8 - len(packed) % 8,
+                                              np.uint8)])
+                    bit4 = np.ascontiguousarray(packed).view(np.uint64)
+            tabs[L] = (keys, head, enext, epid, tsize, bloom, bloom_bits,
+                       head4, enext4, bit4)
+        self._mer_tables_c = tabs
+        return tabs
+
+    def _mer_dev(self) -> MerTables:
+        """The census tables on the scanner's device, built once."""
+        if self._mer_dev_c is None:
+            self._mer_dev_c = MerTables(
+                self._mer_tables(), self._by_len(), self.tables.lengths,
+                self.tables.alpha).to(self.device)
+        return self._mer_dev_c
+
+    def _mer_native(self, codes: np.ndarray, n: int, sort: bool = True,
+                    gate=None):
+        """(ends, pids0) arrays through the native threaded mer-hash scan
+        (``native/shift_and.cpp::sat_mer_scan``), or None when the library
+        is unavailable.  ``gate`` is the optional inline prefix extension
+        gate (``mer_gate_pass``): per pattern (dir, prefix codes, len), and
+        (G, k, band), a superset filter evaluated on the scan threads."""
+        import ctypes
+
+        from ..native import load_shift_and_lib
+
+        lib = load_shift_and_lib()
+        if lib is None or not hasattr(lib, "sat_mer_scan"):
+            return None
+        t = self.tables
+        tabs = self._mer_tables()
+        codes8 = np.ascontiguousarray(np.asarray(codes, np.uint8))
+        c_u8p = ctypes.POINTER(ctypes.c_uint8)
+        c_u64p = ctypes.POINTER(ctypes.c_uint64)
+        c_i32p = ctypes.POINTER(ctypes.c_int32)
+        c_i64p = ctypes.POINTER(ctypes.c_int64)
+        c_i8p = ctypes.POINTER(ctypes.c_int8)
+        if gate is not None:
+            gdir, gpref, gglen, gG, gk, gband = gate
+            # the per-pattern gate metadata in ONE uint64 per pattern when
+            # it fits (G <= 6, so k <= 2): one cache line per gated
+            # candidate instead of three
+            # (shift_and.cpp::mer_gate_pass_packed)
+            gpack = None
+            if gG <= 6:
+                cached = self._mer_gpack_c
+                if cached is not None and cached[0] is gdir:
+                    gpack = cached[1]
+                else:
+                    d64 = np.where(gdir > 0, 1,
+                                   np.where(gdir < 0, 2, 0)).astype(
+                                       np.uint64)
+                    g64 = d64 | (gglen.astype(np.uint64) << np.uint64(2))
+                    pref = gpref.reshape(-1, gG).astype(np.uint64)
+                    for j in range(gG):
+                        g64 |= pref[:, j] << np.uint64(16 + 8 * j)
+                    gpack = np.ascontiguousarray(g64)
+                    self._mer_gpack_c = (gdir, gpack)
+            gate_args = (gdir.ctypes.data_as(c_i8p),
+                         gpref.ctypes.data_as(c_u8p),
+                         gglen.ctypes.data_as(c_u8p), gG, gk, gband,
+                         gpack.ctypes.data_as(c_u64p)
+                         if gpack is not None else None)
+        else:
+            gate_args = (None, None, None, 0, 0, 0, None)
+        d4fn = getattr(lib, "sat_mer_scan_d4", None)
+        all_s, all_p = [], []
+        for L, (keys, head, enext, epid, tsize, bloom,
+                bloom_bits, head4, enext4, bit4) in tabs.items():
+            if n < L:
+                continue
+            # direct-address walk when the class has a base-4 table and
+            # the gate (if any) rides the packed record
+            use_d4 = (d4fn is not None and head4 is not None
+                      and (gate is None or gate_args[6] is not None))
+            if use_d4:
+                pack, bad = self._mer_pack(codes8, n)
+            cap = max(4 * len(epid) + (n >> 6), 1 << 14)
+            while True:
+                # reused across scans (a fresh pair costs page faults)
+                buf = self._mer_outbuf_c
+                if buf is None or len(buf[0]) < cap:
+                    buf = (np.empty(cap, np.int64), np.empty(cap, np.int32))
+                    self._mer_outbuf_c = buf
+                out_s, out_p = buf
+                if use_d4:
+                    total = d4fn(
+                        codes8.ctypes.data_as(c_u8p),
+                        pack.ctypes.data_as(c_u8p),
+                        bad.ctypes.data_as(c_i64p), len(bad), n, L,
+                        head4.ctypes.data_as(c_i32p),
+                        enext4.ctypes.data_as(c_i32p),
+                        epid.ctypes.data_as(c_i32p),
+                        bit4.ctypes.data_as(c_u64p),
+                        gate_args[4], gate_args[5], gate_args[6], 0,
+                        out_s.ctypes.data_as(c_i64p),
+                        out_p.ctypes.data_as(c_i32p), cap)
+                else:
+                    total = lib.sat_mer_scan(
+                        codes8.ctypes.data_as(c_u8p), n, L, t.alpha,
+                        keys.ctypes.data_as(c_u64p),
+                        head.ctypes.data_as(c_i32p),
+                        enext.ctypes.data_as(c_i32p),
+                        epid.ctypes.data_as(c_i32p), tsize,
+                        bloom.ctypes.data_as(c_u64p), bloom_bits,
+                        *gate_args, 0,
+                        out_s.ctypes.data_as(c_i64p),
+                        out_p.ctypes.data_as(c_i32p), cap)
+                if total < 0:
+                    return None
+                if total <= cap:
+                    break
+                cap = 1 << (int(total) - 1).bit_length()
+            # copy out of the reused buffer: the next length class's
+            # native call overwrites it
+            all_s.append(out_s[: int(total)].copy())
+            all_p.append(out_p[: int(total)].astype(np.int64))
+        if not all_s:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        starts = np.concatenate(all_s)
+        pids = np.concatenate(all_p)
+        if sort:
+            order = np.lexsort((pids, starts))
+            starts, pids = starts[order], pids[order]
+        ends = starts + t.lengths[pids].astype(np.int64)
+        return ends, pids
+
+    def _mer_pack(self, codes8, n):
+        """(pack, bad) for the direct-address census walk: the 2-bit
+        MSB-first packed text (padded so the native 8-byte loads never run
+        off the end) and the sorted positions of codes >= 4 (EOS and
+        ambiguity codes, which base-4 masking would alias).  Kept for the
+        last array OBJECT seen (a fresh array may reuse a freed buffer's
+        address)."""
+        cached = self._mer_pack_cc
+        if cached is not None and cached[0] is codes8 and cached[1] == n:
+            return cached[2], cached[3]
+        m = (n + 3) // 4
+        padded = np.zeros(4 * m, np.uint8)
+        padded[:n] = codes8[:n]
+        q = (padded & 3).reshape(m, 4)
+        pack = np.concatenate([
+            (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3],
+            np.zeros(16, np.uint8)])
+        pack = np.ascontiguousarray(pack)
+        bad = np.flatnonzero(codes8[:n] >= 4).astype(np.int64)
+        self._mer_pack_cc = (codes8, n, pack, bad)
+        return pack, bad
+
+    def _census_device(self, codes, n: int, sort: bool):
+        """(ends, pids0) int64 arrays of every exact hit through
+        :func:`.cuda.slots.scan_slots` on the scanner's device.  The true
+        count comes back first; an overflow is one re-launch with a cap
+        past it.  Only the live part of the row is fetched."""
+        dev = self._device_form(codes)
+        mt = self._mer_dev()
+        while True:
+            cap = self._slot_cap_for(n)
+            row = scan_slots(dev, n, mt, cap)
+            count = int(row[0])
+            if not 0 <= count <= self._CAP_MAX:
+                raise RuntimeError(f"census: {count} hits exceed one row "
+                                   f"({self._CAP_MAX}); scan in blocks")
+            if count <= cap:
+                break
+            self._slot_cap = self._pow2(count)
+        starts = row[1 : 1 + count].cpu().numpy().astype(np.int64)
+        pids = row[1 + cap : 1 + cap + count].cpu().numpy().astype(np.int64)
+        if sort:
+            order = np.lexsort((pids, starts))
+            starts, pids = starts[order], pids[order]
+        return starts + self.tables.lengths[pids].astype(np.int64), pids
+
+    def _scan_radix_arrays(self, codes, n: int, sort: bool = True,
+                           gate=None):
+        """(ends, pids0) int64 arrays of every exact hit, in (window-start,
+        pattern) order unless ``sort`` is False: the device census, or on
+        the CPU the native census (with its inline ``gate``), or numpy."""
+        t = self.tables
+        if self.census_on_device():
+            self._route("census kernel (%d patterns; %s)" % (
+                t.P, "CUDA" if self.device.type == "cuda"
+                else "plain PyTorch, CPU"))
+            return self._census_device(codes, n, sort)
+        native = self._mer_native(codes, n, sort=sort, gate=gate)
+        if native is not None:
+            self._route("native threaded mer-hash census "
+                        "(%d patterns)" % t.P)
+            return native
+        self._route("host radix-code census (numpy)")
+        cN = np.asarray(codes).astype(np.int64)
+        all_starts, all_pids = [], []
+        for L, entries in self._by_len().items():
+            if n < L:
+                continue
+            ids = cN[: n - L + 1].copy()
+            for j in range(1, L):
+                ids *= t.alpha
+                ids += cN[j : j + n - L + 1]
+            entries = sorted(entries)
+            scodes = np.fromiter((c for c, _ in entries), np.int64,
+                                 len(entries))
+            spids = np.fromiter((p for _, p in entries), np.int64,
+                                len(entries))
+            uniq, first = np.unique(scodes, return_index=True)
+            pos = np.minimum(np.searchsorted(uniq, ids), len(uniq) - 1)
+            starts = np.nonzero(uniq[pos] == ids)[0]
+            ci = pos[starts]
+            # one emission per matching pattern: identical patterns fan out
+            counts = np.diff(np.append(first, len(scodes)))
+            for rep in range(int(counts.max(initial=1))):
+                sel = counts[ci] > rep
+                if not sel.any():
+                    break
+                all_starts.append(starts[sel])
+                all_pids.append(spids[first[ci[sel]] + rep])
+        if not all_starts:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        starts = np.concatenate(all_starts)
+        pids = np.concatenate(all_pids)
+        order = np.lexsort((pids, starts))
+        starts, pids = starts[order], pids[order]
+        return starts + t.lengths[pids].astype(np.int64), pids
+
+    def _scan_radix(self, codes: np.ndarray):
+        """The census as a candidate stream, in (window-start, pattern)
+        order."""
+        ends, pids = self._scan_radix_arrays(codes, len(codes))
+        e_l = ends.tolist()
+        yield from zip(e_l, pids.tolist(), [0] * len(e_l))
+
+    def scan_seed_arrays(self, codes: np.ndarray, sort: bool = True,
+                         gate=None, ext_gate=None):
+        """(ends, pids0) int64 arrays when the census serves this scan
+        (the routing test of :meth:`scan`'s census rung); None otherwise,
+        and callers iterate :meth:`scan`.  Skips the per-hit tuple stream.
+
+        A gate drops hits whose extension cannot succeed (a superset
+        filter; ``sort`` then orders what is left).  Each route takes its
+        own: the native census the inline prefix gate ``gate`` (the spec
+        of ``PrimerMatchModel._census_gate``), the device census
+        ``ext_gate`` (an :class:`..gate.ExtendGate`), run by
+        ``gate_slots`` over the slot list on the device before anything is
+        fetched."""
+        n = len(codes)
+        if self._stream_whole(codes) or self._host_eligible(n):
+            return None
+        if not self._census_eligible(n):
+            return None
+        if ext_gate is not None and self.census_on_device():
+            _i, ends, pids = next(self._gated_stream(
+                [codes], ext_gate, ext_gate.indels, ext_gate.t.k, 1, True))
+            pids = pids.astype(np.int64)
+            if sort:
+                starts = ends - self.tables.lengths[pids]
+                order = np.lexsort((pids, starts))
+                ends, pids = ends[order], pids[order]
+            return ends, pids
+        return self._scan_radix_arrays(codes, n, sort=sort, gate=gate)
+
+    # -- pattern-blocked outer loop (P > _PBLOCK) ----------------------------
+
+    def _pblock_subs(self):
+        """Sub-scanners over table slices of at most ``_PBLOCK`` patterns,
+        built once per scanner (their converged caps persist)."""
+        if self._pblock_subs_c is None:
+            from .tables import PatternTables
+
+            t = self.tables
+            subs = []
+            for off in range(0, t.P, self._PBLOCK):
+                sl = slice(off, min(off + self._PBLOCK, t.P))
+                st = PatternTables(
+                    match=t.match[sl], lengths=t.lengths[sl],
+                    pat_codes=t.pat_codes[sl], Lmax=t.Lmax,
+                    alpha=t.alpha, eos_code=t.eos_code,
+                    code_chars=t.code_chars,
+                )
+                sub = ConvScanner(st, k=self.k, poison_eos=self.poison_eos,
+                                  device=self.device)
+                sub.use_host = False
+                subs.append((off, sub))
+            self._pblock_subs_c = subs
+        return self._pblock_subs_c
+
+    def _scan_pblocked(self, codes: np.ndarray):
+        """Pattern-blocked fused scan: ALL passes are dispatched before any
+        row is fetched (the device queues them back to back and each row's
+        copy to pinned memory runs behind its pass), then the hits merge
+        to the global (window-start, pattern) order."""
+        codes_dev = self._device_form(codes)
+        n = len(codes)
+        pending = []
+        for off, sub in self._pblock_subs():
+            caps = sub._presize(n)
+            host, ev = self._to_host(sub._dispatch(codes_dev, n, *caps))
+            pending.append((off, sub, host, ev, caps))
+        out = []
+        for off, sub, host, ev, caps in pending:
+            if ev is not None:
+                ev.synchronize()
+            lens = sub.tables.lengths
+            for end, p0, m in sub._decode_packed(host.numpy(), codes_dev, n,
+                                                 caps):
+                out.append((end - int(lens[p0]), off + p0, end, m))
+        out.sort()
+        for _start, pid, end, m in out:
+            yield end, pid, m
 
     # -- streaming whole arrays ----------------------------------------------
 
@@ -472,7 +955,6 @@ class ConvScanner:
             return
         n = len(codes)
         est = self._expected_hits(n)
-        nmb = max(n // self._MB, 1)
         if self._host_eligible(n):
             self._route("native shift-and host machine "
                         "(one-shot latency path)")
@@ -481,13 +963,23 @@ class ConvScanner:
             if self.progress:
                 self.progress(1.0)
             return
-        if (self.k == 0 and n >= (1 << 18)
-                and (est * 4 >= nmb or self.tables.P > self._PBLOCK)
-                and self._radix_eligible()):
-            raise NotImplementedError(
-                "the host radix census for dense exact seeds is not ported "
-                "yet (ROADMAP queue 1 item 3)")
-        self._check_fused()
+        if self._census_eligible(n):
+            # dense exact seeds (the pigeonhole and hash engines) fire on
+            # nearly every microblock, which degenerates the two-level
+            # filter, and past _PBLOCK patterns the filter costs a pass
+            # per block: one code and one probe per start beat both
+            yield from self._scan_radix(codes)
+            if self.progress:
+                self.progress(1.0)
+            return
+        if self.tables.P > self._PBLOCK:
+            self._route("pattern-blocked scan pipeline (%d patterns, %d "
+                        "blocks)" % (self.tables.P,
+                                     -(-self.tables.P // self._PBLOCK)))
+            yield from self._scan_pblocked(codes)
+            if self.progress:
+                self.progress(1.0)
+            return
         self._route("fused CUDA scan pipeline"
                     if self.device.type == "cuda"
                     else "fused scan pipeline (plain PyTorch on the CPU)")

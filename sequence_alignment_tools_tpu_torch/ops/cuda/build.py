@@ -112,6 +112,26 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, i64,            # out, cap
             vp,                 # stream
         ]
+    elif name == "seed_slots":
+        lib.sat_seed_slots.restype = i32
+        lib.sat_seed_slots.argtypes = [
+            vp, i64, i32,       # codes, n, alpha
+            vp, i32, i32,       # cls, ncls, Lmax
+            vp, vp, vp, vp,     # keys, head, enext, epid
+            vp, i64,            # out, cap
+            vp,                 # stream
+        ]
+    elif name == "gate_slots":
+        lib.sat_gate_slots.restype = i32
+        lib.sat_gate_slots.argtypes = [
+            vp, i64,            # codes, n
+            vp, i64,            # slots, cap_in
+            vp,                 # lengths
+            vp, vp, vp,         # gate bits, glen, gdir
+            i32, i32, i32, i32,  # Lg, k, band, indels
+            vp, i64,            # out, cap
+            vp,                 # stream
+        ]
     elif name == "myers":
         lib.sat_myers_pairs.restype = i32
         lib.sat_myers_pairs.argtypes = [

@@ -34,8 +34,9 @@
 //   - the seed weights sit in shared memory in pattern chunks, with the
 //     early exit of scan_filter.cu (scan_chunk.cuh), but every seed of
 //     every chunk is visited instead of stopping at the first hit;
-//   - each seed hit runs the diagonal-banded gate DP at once, in the
-//     registers of its lane (D[2 band + 1], band <= 8, saturated at k + 1),
+//   - each seed hit runs the diagonal-banded gate DP (gate.cuh, shared
+//     with gate_slots.cu) at once, in the registers of its lane
+//     (D[2 band + 1], band <= 8, saturated at k + 1),
 //     and stops as soon as a whole row is saturated; the extension window
 //     is read from device memory through the read-only cache;
 //   - the accept bits [S, Lg] sit in shared memory when they fit the
@@ -47,11 +48,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gate.cuh"
 #include "scan_chunk.cuh"
 
 namespace {
 
 using sat::full_grid;
+using sat::Gate;
+using sat::gate_ok;
+using sat::kMaxBand;
 using sat::LaunchCache;
 using sat::per_pattern_bytes;
 using sat::round_up;
@@ -59,83 +64,9 @@ using sat::stage_chunk;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxBand = 8;
-constexpr int kMaxW = 2 * kMaxBand + 1;
-constexpr int kSentinel = 30;           // a code no accept bit matches
 constexpr int kSmemBudget = 96 * 1024;  // leaves room for 2 blocks per SM
 constexpr int kGateSmemMax = 32 * 1024;
 constexpr int kSmemMax = 232448;        // sm_90 per-block opt-in maximum
-
-struct Gate {
-  const int32_t* bits;  // [S, Lg], in shared memory when `shared`
-  const int32_t* glen;
-  const int32_t* gdir;
-  int Lg, k, band;
-  bool indels, shared;
-};
-
-// The banded anchored edit distance of seed s's extension pattern at
-// `anchor` is at most k.  D[d] holds dp[p][p + d - band], saturated at
-// INF = k + 1; a row is updated in place in ascending d, since cell d
-// reads the old cells d and d + 1 and the new cell d - 1.
-__device__ bool gate_ok(const uint8_t* __restrict__ codes, int64_t n,
-                        int64_t anchor, int s, const Gate& g) {
-  const int glen = __ldg(g.glen + s);
-  if (glen == 0) return true;
-  const int gdir = __ldg(g.gdir + s);
-  const int INF = g.k + 1;
-  const int W = 2 * g.band + 1;
-  const int Wg = g.Lg + g.band;
-  int D[kMaxW];
-#pragma unroll
-  for (int d = 0; d < kMaxW; ++d) {
-    int v = INF;
-    if (g.indels) {
-      if (d >= g.band) v = min(d - g.band, INF);
-    } else if (d == g.band) {
-      v = 0;
-    }
-    D[d] = v;
-  }
-  const int32_t* brow = g.bits + static_cast<int64_t>(s) * g.Lg;
-  int rowmin = INF;
-  for (int p = 1; p <= glen; ++p) {
-    const int acc = g.shared ? brow[p - 1] : __ldg(brow + p - 1);
-    int prev = INF;
-    rowmin = INF;
-#pragma unroll
-    for (int d = 0; d < kMaxW; ++d) {
-      if (d < W) {
-        const int tpos = p + d - g.band;
-        const int next = d + 1 < kMaxW ? D[d + 1 < kMaxW ? d + 1 : d] : INF;
-        int v;
-        if (tpos == 0 && g.indels && d + 1 < W) {
-          v = min(next + 1, INF);  // leading deletion: dp[p][0] = p
-        } else if (tpos < 1 || tpos > Wg) {
-          v = INF;
-        } else {
-          const int64_t j = tpos - 1;
-          const int64_t idx = gdir > 0 ? anchor + j : anchor + gdir - j;
-          const int c =
-              (idx >= 0 && idx < n) ? __ldg(codes + idx) : kSentinel;
-          const int match = c < 31 ? (acc >> c) & 1 : 0;
-          v = D[d] + (match ? 0 : 1);
-          if (g.indels) {
-            if (d + 1 < W) v = min(v, next + 1);  // deletion
-            if (d > 0) v = min(v, prev + 1);      // insertion
-          }
-          v = min(v, INF);
-        }
-        D[d] = v;
-        prev = v;
-        rowmin = min(rowmin, v);
-      }
-    }
-    // a saturated row stays saturated: every later cell is >= INF
-    if (rowmin > g.k) return false;
-  }
-  return true;
-}
 
 __global__ void __launch_bounds__(kThreads)
 seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n,

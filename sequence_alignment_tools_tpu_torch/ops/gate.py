@@ -87,15 +87,24 @@ class GateTables:
         accept = np.zeros((S, Lg, alpha), dtype=bool)
         compat = compat_matrix() if wc else None
         chars = [db.ch(c) for c in range(alpha)]
+        # the accept row of each distinct pattern character, built once
+        # (the seed loop below then costs one row copy per position)
+        rows: dict[str, np.ndarray] = {}
+
+        def accept_row(pc: str) -> np.ndarray:
+            row = rows.get(pc)
+            if row is None:
+                row = np.fromiter(
+                    (tc == pc or bool(wc and compat[ord(tc), ord(pc)]
+                                      and (textn or tc != "N"))
+                     for tc in chars), bool, alpha)
+                rows[pc] = row
+            return row
+
         for s, pat in enumerate(ext_pats):
             p = pat if dirs[s] > 0 else pat[::-1]
             for j, pc in enumerate(p):
-                for c, tc in enumerate(chars):
-                    if tc == pc:
-                        accept[s, j, c] = True
-                    elif (wc and compat[ord(tc), ord(pc)]
-                          and (textn or tc != "N")):
-                        accept[s, j, c] = True
+                accept[s, j] = accept_row(pc)
         glen = np.fromiter((len(p) for p in ext_pats), np.int32, S)
         return cls(accept, glen, np.asarray(dirs, np.int32),
                    np.asarray(offs, np.int32), k, band)

@@ -166,14 +166,18 @@ def test_wide_alphabet_matches_xla_path(monkeypatch):
 
 
 def test_waiting_rungs_raise(db):
+    """Only the sharded rungs still raise; dense seeds past 2^18
+    positions, which used to, take the census rung."""
     tables = _tables(db)
     meshed = _fused(tables, 0)
     meshed.mesh = object()
     with pytest.raises(NotImplementedError, match="item 11"):
         list(meshed.scan(db.codes))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        list(meshed.scan_stream([db.codes]))
     big = np.tile(db.codes, 5)  # 300k positions of dense 4-mer seeds
     seeds = _tables(db, [p[:4] for p in PATS], rev_comp=False)
     dense = ConvScanner(seeds, k=0, device="cpu")
     dense.use_host = False
-    with pytest.raises(NotImplementedError, match="radix census"):
-        list(dense.scan(big))
+    assert dense._census_eligible(len(big))
+    assert list(dense.scan(big)) == _want(seeds, 0, big)

@@ -11,6 +11,7 @@ the cluster verify; ``-K 2``: the poisoned k-mismatch scan); a source
 scan checks every file of the package and ``chip_smoke.py``.
 """
 
+import io
 import os
 import pathlib
 import re
@@ -50,9 +51,13 @@ runpy.run_module("sequence_alignment_tools_tpu_torch", run_name="__main__",
                                              ("1", ["-r"]),
                                              ("0", ["-k", "1", "-r"]),
                                              ("0", ["-k", "2", "-r"]),
-                                             ("0", ["-K", "2", "-r"])],
+                                             ("0", ["-K", "2", "-r"]),
+                                             ("0", ["-N", "6", "-k", "1",
+                                                    "-r"]),
+                                             ("0", ["-N", "15", "-K", "2",
+                                                    "-r"])],
                          ids=["torch-blocks", "host-machine", "gated-k1",
-                              "filter-k2", "filter-K2"])
+                              "filter-k2", "filter-K2", "hash", "gs"])
 def test_sitless_cli_never_imports_jax(tmp_path, capsys, monkeypatch,
                                        host_scan, flags):
     fasta = str(tmp_path / "db.fasta")
@@ -80,6 +85,32 @@ def test_sitless_cli_never_imports_jax(tmp_path, capsys, monkeypatch,
     assert r.stdout.decode() == want
 
 
+@pytest.mark.parametrize("flags", [["-r"], ["-r", "-k", "1"]],
+                         ids=["k0", "k1"])
+def test_sitless_pcr_match_never_imports_jax(tmp_path, flags):
+    from sequence_alignment_tools_tpu.apps import pcr_match as jax_pcr
+    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+
+    fwd, rev = "ACGTTGCAGGTACCA", "GATTACAGATTACAG"
+    fasta = str(tmp_path / "db.fasta")
+    make_synthetic_fasta(fasta, total=40_000, seed=5,
+                         planted=[(1200, fwd), (1500, reverse_comp(rev))])
+    argv = ["-i", fasta, "-p", f"{fwd} {rev}"] + flags
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env.update(SAT_DEVICE="cpu", SAT_HOST_SCAN="0")
+    r = subprocess.run(
+        [sys.executable, "-S", "-c", BOOT, str(REPO), "pcr_match"] + argv,
+        capture_output=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr.decode()[-1500:]
+    assert b"jax_imported=False jax_package_imported=False" in r.stderr, \
+        r.stderr.decode()[-1500:]
+    want = io.StringIO()
+    jax_pcr.run(jax_pcr.parse_args(argv), want)
+    assert want.getvalue().count("\n") >= 1
+    assert r.stdout.decode() == want.getvalue()
+
+
 # an import of the JAX package: a module path that starts with its name
 # and does not go on with "_torch"
 JAX_PKG_IMPORT = re.compile(
@@ -90,6 +121,9 @@ JAX_PKG_IMPORT = re.compile(
 def test_no_file_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 12
+    for mod in ("ops/cuda/slots.py", "ops/gapped_seeds.py",
+                "models/pcr_match.py", "apps/pcr_match.py"):
+        assert PKG / mod in files
     for f in files:
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f

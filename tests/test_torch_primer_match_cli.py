@@ -91,12 +91,18 @@ def test_parity_edit_options(inputs, flags, host_scan, capsys, monkeypatch):
     assert got == want
 
 
-# the engines hash (-N 6) and gs (-N 15) and translated search (-T)
+# translated search (-T) still exits 1; the engines hash (-N 6) and gs
+# (-N 15) used to, and now print the JAX CLI's bytes
 @pytest.mark.parametrize("flags", [["-k", "1", "-N", "6"], ["-T"],
-                                   ["-k", "1", "-N", "15", "-r"]])
+                                   ["-K", "1", "-N", "15", "-r"]])
 def test_unported_options_exit(inputs, flags, capsys, monkeypatch):
     fasta, words, _ = inputs
     monkeypatch.setenv("SAT_DEVICE", "cpu")
+    if "-N" in flags:
+        want, got = _both(["-i", fasta, "-P", words] + flags, capsys,
+                          monkeypatch)
+        assert want and got == want
+        return
     with pytest.raises(SystemExit) as e:
         torch_app.main(["-i", fasta, "-P", words] + flags)
     assert e.value.code == 1
@@ -104,7 +110,7 @@ def test_unported_options_exit(inputs, flags, capsys, monkeypatch):
 
 
 def test_dispatcher(monkeypatch, capsys):
-    monkeypatch.setattr("sys.argv", ["sat", "pcr_match", "-h"])
+    monkeypatch.setattr("sys.argv", ["sat", "peptide_scan", "-h"])
     assert torch_main.main() == 1
     assert "not ported" in capsys.readouterr().err
     monkeypatch.setattr("sys.argv", ["sat", "--help"])

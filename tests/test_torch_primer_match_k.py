@@ -147,6 +147,13 @@ def test_bench_primers_select_halves(db):
 
 @pytest.mark.parametrize("k,node,engine", [(1, 6, "hash"), (1, 15, "gs")])
 def test_unported_engines_raise(db, k, node, engine):
+    """No engine is left to raise: ``hash`` and ``gs`` build and run; only
+    a device mesh (the sharded rungs) still does."""
     ps = build_pattern_set(PATS, rev_comp=True)
-    with pytest.raises(NotImplementedError, match=engine):
-        PrimerMatchModel(db, ps, k=k, node=node, device="cpu")
+    m = PrimerMatchModel(db, ps, k=k, indels=False, node=node, device="cpu")
+    assert m.engine == engine
+    assert list(m.engine_hits()) == list(JaxModel(
+        db, ps, k=k, indels=False, node=node, mesh=None).engine_hits())
+    with pytest.raises(NotImplementedError, match="item 11"):
+        PrimerMatchModel(db, ps, k=k, node=node, mesh=object(),
+                         device="cpu")
