@@ -12,10 +12,16 @@ output:
 1. card: name and power limit, kernel build time;
 2. kernel against plain: ``scan_occupancy`` on the card equals
    ``scan_occupancy_ref`` on the card bit for bit (2^24 positions, the
-   bench primer set at k = 0 and 1, an odd length, 150 and 2048 patterns,
-   140-base patterns, the 15-code IUPAC alphabet);
+   bench primer set at k = 0 and 1 and ``-K 2`` poisoned, an odd length,
+   150 and 2048 patterns (k = 0 and 1), 33- and 140-base patterns, the
+   15-code IUPAC alphabet (k = 0 and 1), a 41-code alphabet, and random
+   accept sets that take the per-code mask rows);
 3. main path: ``ConvScanner.scan`` over a resident 2^28-position
-   database equals the native host shift-and's hit list; then the same
+   database equals the native host shift-and's hit list; the filter at
+   2^28 against plain; yardsticks on their own lines: the filter on the
+   k = 1 seeds and ``-K 2`` at 2^28 (against plain), an older commit's
+   filter timed beside it when ``PARENT_DIR`` holds its source, and the
+   census kernel (``scan_slots``) over the same 20 primers; then the same
    device route on a small scan (n < 2^20), on 140-base patterns and on
    degenerate primers over an IUPAC database, each launching the kernel;
 4. serving: ``scan_stream`` over 16 blocks of 2^24 equals per-block scans,
@@ -40,7 +46,9 @@ output:
    ``myers_pairs_ref`` (the bench primers, packed two to a word, k = 1, 2,
    3) and ``sellers_scan`` against ``sellers_ref`` (100 patterns of 60 to
    100 bases at k = 1, 2, 4, without indels, and degenerate primers over
-   an IUPAC database under ``-w``), both also at cap 1 (the overflow);
+   an IUPAC database under ``-w``; patterns of about 3,200 bases, 64
+   threads a block, and of about 7,400, columns tiled into device
+   scratch), both also at cap 1 (the overflow);
 9. the k = 2 main path: ``PrimerMatchModel(k=2, indels=True)`` (the
    filter engine, Myers route) over the resident 2^28 database, engine
    hits equal to the host route's (the native Sellers rows), every exact,
@@ -51,6 +59,8 @@ output:
     complements (P = 48, Lmax = 40), k = 2, over the first 2^26 positions
     with the primers planted; engine hits equal to the host route's (the
     native Sellers rows over pattern groups that fit the native machine);
+    an older commit's Sellers kernel timed beside it when ``PARENT_DIR``
+    holds its source;
 11. the slot kernels against plain: ``scan_slots`` against
     ``scan_slots_ref`` at 2^20 positions with 5,000 seeds of mixed lengths
     8 to 24 (duplicates, one seed planted across an EOS) and at cap 1 (the
@@ -244,7 +254,8 @@ def make_db(n, seed):
 
 
 def check_kernels(cases, dev):
-    """Phase 2: kernel against plain on each case; returns the largest
+    """Phase 2: kernel against plain on each case (name, codes, n, device
+    tables[, the code read past n, EOS by default]); returns the largest
     absolute difference seen (0 when bit-identical)."""
     import torch
 
@@ -254,10 +265,11 @@ def check_kernels(cases, dev):
     )
 
     worst = 0
-    for name, codes_dev, n, dt in cases:
-        got = scan_occupancy(codes_dev, dt.weights16, dt.thresholds, n, EOS)
+    for name, codes_dev, n, dt, *eos in cases:
+        eos = eos[0] if eos else EOS
+        got = scan_occupancy(codes_dev, dt.weights16, dt.thresholds, n, eos)
         want = scan_occupancy_ref(codes_dev, dt.weights16, dt.thresholds, n,
-                                  EOS)
+                                  eos)
         torch.cuda.synchronize()
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
         worst = max(worst, err)
@@ -289,6 +301,106 @@ def iupac_db(n, seed):
     text = seq.decode()
     pats = [text[i : i + 14] for i in range(1000, n - 100, n // 8)]
     return db, pats + ["ACGRYTNNSWKT"]
+
+
+def wide_db(n, seed):
+    """A 41-code database (40 symbols: the amino acids, the other letters,
+    digits and four marks; EOS) in two entries, and 12 patterns of 6 to 9
+    symbols cut from it, every other one with a substitution."""
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYBJOUXZ0123456789*-+.",
+                            np.uint8)
+    seq = letters[rng.integers(0, len(letters), size=n)].tobytes()
+    db = SeqDB.from_entries([("x1", seq[: n // 2]), ("x2", seq[n // 2 :])])
+    text = seq.decode()
+    pats = []
+    for i, at in enumerate(rng.integers(0, n - 10, size=12)):
+        p = list(text[at : at + 6 + i % 4])
+        if i % 2:
+            p[2] = chr(letters[int(rng.integers(0, len(letters)))])
+        pats.append("".join(p))
+    return db, pats
+
+
+# An older commit's scan filter and Sellers kernel (its scan_filter.cu,
+# sellers.cu and scan_chunk.cuh; 40b2571 below), timed beside this
+# checkout's kernels when their sources have been unpacked into this
+# git-ignored directory:
+#   mkdir -p build/parent_kernels && for f in scan_filter.cu sellers.cu \
+#     scan_chunk.cuh; do git show 40b2571:sequence_alignment_tools_tpu_torch/\
+#     ops/cuda/csrc/$f > build/parent_kernels/$f; done
+PARENT_DIR = os.path.join("build", "parent_kernels")
+
+
+def parent_kernels():
+    """(filter, sellers): ``filter(codes, w, thr, n, eos) -> occ`` and
+    ``sellers(codes, n, st, eos, k, indels, cap, segc) -> row`` through
+    the older commit's kernels built from ``PARENT_DIR``, each None when
+    its source is not there (a plain checkout)."""
+    import ctypes
+
+    import torch
+
+    from sequence_alignment_tools_tpu_torch.ops.cuda.build import (
+        NVCC_FLAGS,
+        _nvcc,
+    )
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    procs = {}
+    for name in ("scan_filter", "sellers"):
+        src = os.path.join(PARENT_DIR, name + ".cu")
+        if os.path.exists(src):
+            out = os.path.abspath(os.path.join(PARENT_DIR, f"lib{name}.so"))
+            procs[name] = (out, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", out, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log_, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {name}.cu: {log_.decode()}")
+        libs[name] = ctypes.CDLL(out)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    filt = sel = None
+    if "scan_filter" in libs:
+        ffn = libs["scan_filter"].sat_scan_occupancy
+        ffn.restype = i32
+        ffn.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, vp, i64, vp]
+
+        def filt(codes, w, thr, n, eos):
+            Lmax, alpha, P = w.shape
+            nmb = -(-n // 32)
+            occ = torch.empty(nmb, dtype=torch.bool, device=codes.device)
+            rc = ffn(codes.data_ptr(), n, w.data_ptr(), thr.data_ptr(), Lmax,
+                     alpha, P, eos, occ.data_ptr(), nmb, stream())
+            if rc:
+                raise RuntimeError(f"parent scan_filter: cudaError_t {rc}")
+            return occ
+
+    if "sellers" in libs:
+        sfn = libs["sellers"].sat_sellers_scan
+        sfn.restype = i32
+        sfn.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+                        i32, i32, vp, i64, vp]
+
+        def sel(codes, n, st, eos, k, indels, cap, segc):
+            out = torch.zeros(1 + 3 * cap, dtype=torch.int32,
+                              device=codes.device)
+            rc = sfn(codes.data_ptr(), n, st.acc.data_ptr(),
+                     st.lens.data_ptr(), st.P, st.Lmax, st.aw, st.alpha, eos,
+                     k, int(indels), segc, st.Lmax + k, out.data_ptr(), cap,
+                     stream())
+            if rc:
+                raise RuntimeError(f"parent sellers: cudaError_t {rc}")
+            return out
+
+    return filt, sel
 
 
 def device_route_vs_host(name, tables, codes, dev):
@@ -723,10 +835,14 @@ def main():
     from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
     from sequence_alignment_tools_tpu_torch.ops.cuda import build
     from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        filter_tables,
         scan_occupancy,
         scan_occupancy_ref,
     )
-    from sequence_alignment_tools_tpu_torch.ops.tables import device_tables
+    from sequence_alignment_tools_tpu_torch.ops.tables import (
+        DeviceTables,
+        device_tables,
+    )
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -742,6 +858,10 @@ def main():
     libs = build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(sorted(libs))})")
+    parent, parent_sellers = parent_kernels()
+    log("older scan_filter.cu and sellers.cu: "
+        + ("built from " + PARENT_DIR if parent else
+           "not unpacked here, no comparison"))
 
     # 2. kernel against plain at the serving block size
     db, planted, variants = make_db(MAIN_N, SEED)
@@ -768,6 +888,27 @@ def main():
     wtables = build_tables(build_pattern_set(wpats, rev_comp=True), wdb,
                            wc=True, textn=False)
     wdev = torch.from_numpy(wdb.codes.copy()).to(dev)
+    # the bit-parallel filter's other forms: counter planes (-K 2, k = 3,
+    # k = 1 over 2048 patterns), IUPAC classes, a 41-code alphabet, and
+    # per-code mask rows (random accept sets, more classes than codes)
+    rng2 = np.random.default_rng(SEED + 9)
+    xdb, xpats = wide_db(1 << 20, SEED + 8)
+    xtables = build_tables(build_pattern_set(xpats, rev_comp=False), xdb,
+                           wc=False, textn=False)
+    xdev = torch.from_numpy(xdb.codes.copy()).to(dev)
+    t33 = build_tables(build_pattern_set(random_pats(rng2, 6, 25, 33),
+                                         rev_comp=True),
+                       db, wc=False, textn=False)
+    t2048 = build_tables(build_pattern_set(
+        PATS + random_pats(rng2, 2038, 14, 24), rev_comp=False), db,
+        wc=False, textn=False)
+    w_rand = (rng2.random((10, xtables.alpha, 60)) < 0.3).astype(np.int16)
+    w_rand[:, xdb.eos_code, :] = 0
+    rand_dt = DeviceTables(
+        weights=torch.from_numpy(w_rand.astype(np.float32)).to(dev),
+        weights16=torch.from_numpy(w_rand).to(dev),
+        thresholds=torch.full((60,), 9, dtype=torch.int32, device=dev),
+        lengths=torch.full((60,), 10, dtype=torch.int32, device=dev))
     max_err = check_kernels([
         ("k=0", blk_dev, BLOCK_N, dt0),
         ("k=1 poison", blk_dev, BLOCK_N, dt1),
@@ -778,7 +919,21 @@ def main():
          device_tables(long_tables, 1, True, dev)),
         ("IUPAC alphabet", wdev, len(wdb.codes),
          device_tables(wtables, 0, False, dev)),
+        ("-K 2 poison", blk_dev, BLOCK_N, device_tables(tables, 2, True, dev)),
+        ("IUPAC alphabet, k=1 poison", wdev, len(wdb.codes),
+         device_tables(wtables, 1, True, dev), wdb.eos_code),
+        ("41-code alphabet", xdev, len(xdb.codes),
+         device_tables(xtables, 0, False, dev), xdb.eos_code),
+        ("41-code alphabet, k=1 poison", xdev, len(xdb.codes) - 7,
+         device_tables(xtables, 1, True, dev), xdb.eos_code),
+        ("Lmax=33, k=3 poison", blk_dev[: 1 << 22], 1 << 22,
+         device_tables(t33, 3, True, dev)),
+        ("P=2048, k=1 poison", blk_dev[: 1 << 20], 1 << 20,
+         device_tables(t2048, 1, True, dev)),
+        ("per-code mask rows (600 random accept sets)", xdev,
+         len(xdb.codes), rand_dt, xdb.eos_code),
     ], dev)
+    del xdev
     k_ms = cuda_ms(lambda: scan_occupancy(
         blk_dev, dt0.weights16, dt0.thresholds, BLOCK_N, EOS), reps=20)
     p_ms = cuda_ms(lambda: scan_occupancy_ref(
@@ -842,6 +997,57 @@ def main():
         main_dev, dt.weights16, dt.thresholds, MAIN_N, EOS), reps=1)
     log(f"scan_occupancy at n=2^28, P=20, k=0 on {smi}: kernel {k28:.4f} "
         f"ms, plain {p28:.4f} ms (CUDA events, median; equal)")
+
+    # 3c. yardsticks: the filter on the k = 1 seeds and -K 2 at 2^28, the
+    # parent commit's kernel on each shape (parent, new, new, parent),
+    # and the census kernel over the same 20 literal primers
+    from sequence_alignment_tools_tpu_torch.ops.cuda.slots import scan_slots
+
+    _e, dt_seed, _g = gate_setup(db, PATS, 1, True, dev)
+    dt_k2 = device_tables(tables, 2, True, dev)
+    filter_ms = {}
+    for label, cd, n, d, reps in (
+            ("2^24, P=20, k=0", main_dev[:BLOCK_N], BLOCK_N, dt, 20),
+            ("2^28, P=20, k=0", main_dev, MAIN_N, dt, 10),
+            ("2^28, 40 half seeds (k=1 path)", main_dev, MAIN_N, dt_seed, 10),
+            ("2^28, -K 2 poison, P=20", main_dev, MAIN_N, dt_k2, 10)):
+        args = (cd, d.weights16, d.thresholds, n, EOS)
+        occ_new = scan_occupancy(*args)
+        if "half seeds" in label or "-K 2" in label:
+            if not torch.equal(occ_new, scan_occupancy_ref(*args)):
+                raise AssertionError(f"scan_occupancy differs from plain: "
+                                     f"{label}")
+        if parent is None:
+            filter_ms[label] = (cuda_ms(lambda: scan_occupancy(*args),
+                                        reps=reps), None)
+            log(f"scan_occupancy at {label} on {smi}: kernel "
+                f"{filter_ms[label][0]:.4f} ms (CUDA events, median)")
+            continue
+        if not torch.equal(parent(*args), occ_new):
+            raise AssertionError(f"parent kernel differs: {label}")
+        p1 = cuda_ms(lambda: parent(*args), reps=reps)
+        n1 = cuda_ms(lambda: scan_occupancy(*args), reps=reps)
+        n2 = cuda_ms(lambda: scan_occupancy(*args), reps=reps)
+        p2 = cuda_ms(lambda: parent(*args), reps=reps)
+        filter_ms[label] = ((n1 + n2) / 2, (p1 + p2) / 2)
+        log(f"scan_occupancy at {label} on {smi}: bit-parallel kernel "
+            f"{n1:.4f}, {n2:.4f} ms; older kernel {p1:.4f}, "
+            f"{p2:.4f} ms (CUDA events, median; parent, new, new, parent; "
+            f"equal occupancy)")
+    mt20 = sc._mer_dev()
+    cap20 = sc._slot_cap_for(MAIN_N)
+    ends_c, pids_c = sc._census_device(codes, MAIN_N, sort=True)
+    if list(zip(ends_c.tolist(), pids_c.tolist())) != [
+            (e, p) for e, p, _m in got]:
+        raise AssertionError("census over the 20 primers differs from the "
+                             "main path's hits")
+    census_ms = cuda_ms(lambda: scan_slots(main_dev, MAIN_N, mt20, cap20),
+                        reps=10)
+    log(f"census yardstick: scan_slots over the 20 literal primers "
+        f"({len(mt20.lens)} length classes), n=2^28 on {smi}: "
+        f"{census_ms:.4f} ms (CUDA events, median), {len(ends_c)} hits == "
+        f"the main path's; bit-parallel filter "
+        f"{filter_ms['2^28, P=20, k=0'][0]:.4f} ms")
     del main_dev, got_occ, want_occ
 
     # 3b. the same device route on the shapes the TPU kernel gated off
@@ -1018,6 +1224,7 @@ def main():
     from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
         sellers_ref,
         sellers_scan,
+        sellers_segc,
         sellers_tables,
     )
 
@@ -1055,8 +1262,43 @@ def main():
          2, True, 1 << 20),
         (f"P={st_l.P} k=2, cap 1", "sellers_scan", kdev, KEDIT_N, st_l, EOS,
          2, True, 1)]
+    # patterns of 2,800 to 3,200 bases (and reverse complements): their
+    # columns do not fit shared memory and live in device scratch
+    xl_n = 1 << 21
+    xl_text = "".join("ACGT"[c] if c < 4 else "A" for c in codes[:xl_n])
+    xl_pats = [edit(kr, xl_text[400_000 * i + 5 : 400_000 * i + 5 + ln],
+                    ("sub", "del", "ins")[: i % 3])
+               for i, ln in enumerate(kr.integers(2800, 3201, size=4))]
+    st_xl = sellers_tables(build_tables(
+        build_pattern_set(xl_pats, rev_comp=True), db, wc=False,
+        textn=False)).to(dev)
+    # and of 7,200 to 7,600 bases: past 32 threads' shared memory, the
+    # lower cells of each column in device scratch
+    xxl_pats = [edit(kr, xl_text[500_000 * i + 9 : 500_000 * i + 9 + ln],
+                     ("sub", "ins")[: i % 2])
+                for i, ln in enumerate(kr.integers(7200, 7601, size=2))]
+    st_xxl = sellers_tables(build_tables(
+        build_pattern_set(xxl_pats, rev_comp=True), db, wc=False,
+        textn=False)).to(dev)
+    xl_dev = torch.from_numpy(codes[:xl_n].copy()).to(dev)
+    kcases += [
+        (f"P={st_xl.P} Lmax={st_xl.Lmax} k=2 (64 threads a block)",
+         "sellers_scan", xl_dev, xl_n, st_xl, EOS, 2, True, 1 << 20),
+        (f"P={st_xxl.P} Lmax={st_xxl.Lmax} k=2 (columns tiled into device "
+         "scratch)", "sellers_scan", xl_dev[: 1 << 20], 1 << 20, st_xxl, EOS,
+         2, True, 1 << 20)]
     kedit_err = check_kedit(kcases)
-    del kdev
+    xl_ms = cuda_ms(lambda: sellers_scan(xl_dev, xl_n, st_xl, EOS, 2, True,
+                                         1 << 20), reps=5)
+    _r, xl_plain = timed(lambda: sellers_ref(xl_dev, xl_n, st_xl, EOS, 2,
+                                             True, 1 << 20))
+    xxl_ms = cuda_ms(lambda: sellers_scan(xl_dev, 1 << 20, st_xxl, EOS, 2,
+                                          True, 1 << 20), reps=3)
+    log(f"sellers_scan at n=2^21, P={st_xl.P}, Lmax={st_xl.Lmax}, k=2 on "
+        f"{smi}: kernel {xl_ms:.4f} ms, plain {xl_plain:.4f} ms (CUDA "
+        f"events); at n=2^20, P={st_xxl.P}, Lmax={st_xxl.Lmax} (tiled "
+        f"columns): kernel {xxl_ms:.4f} ms")
+    del kdev, xl_dev
 
     # 8. the k = 2 main path: the filter engine (Myers route) at 2^28
     m2 = PrimerMatchModel(db, ps1, k=2, indels=True, device=dev)
@@ -1219,6 +1461,38 @@ def main():
     log(f"sellers_scan at n=2^26, P=48, Lmax={st2.Lmax}, k=2 on {smi}: "
         f"kernel {sel_ms:.4f} ms, plain {sel_plain:.4f} ms (CUDA events; "
         f"equal; {sel_hits_n} triples)")
+    if parent_sellers is not None:
+        segc = sellers_segc(SELLERS_N, st2.P, st2.Lmax + 2)
+
+        def run_parent():
+            return parent_sellers(sl_dev, SELLERS_N, st2, EOS, 2, True,
+                                  sel_cap, segc)
+
+        slib = build.library("sellers")
+
+        def run_new():
+            # the same host work as the parent's wrapper: one ctypes call
+            out = torch.zeros(1 + 3 * sel_cap, dtype=torch.int32, device=dev)
+            rc = slib.sat_sellers_scan(
+                sl_dev.data_ptr(), SELLERS_N, st2.acc.data_ptr(),
+                st2.lens.data_ptr(), st2.P, st2.Lmax, st2.aw, st2.alpha, EOS,
+                2, 1, segc, st2.Lmax + 2, out.data_ptr(), sel_cap, None, 0,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"sellers: cudaError_t {rc}")
+            return out
+
+        if row_set(run_parent(), sel_cap, 3) != row_set(sel_row, sel_cap, 3):
+            raise AssertionError("parent sellers kernel differs at 2^26")
+        p1 = cuda_ms(run_parent, reps=5)
+        n1 = cuda_ms(run_new, reps=5)
+        n2 = cuda_ms(run_new, reps=5)
+        p2 = cuda_ms(run_parent, reps=5)
+        log(f"sellers_scan at n=2^26, P=48, Lmax={st2.Lmax}, k=2 on {smi}: "
+            f"this kernel {n1:.4f}, {n2:.4f} ms; older kernel "
+            f"{p1:.4f}, {p2:.4f} ms (CUDA events, median; parent, new, "
+            f"new, parent; both launched by one ctypes call; equal "
+            f"triples)")
     del sl_dev, ml
 
     # 10. the slot kernels against plain, and the pattern-blocked rung
@@ -1630,10 +1904,16 @@ def main():
     src = "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"
     tpu = "sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py"
     # bounds: each input byte read once, each output byte written once;
-    # operations as this run's data needs them, at least: the filter one
-    # lookup and one compare per window start and pattern (P = 20)
+    # operations as this run's data needs them, at least.  The filter's
+    # bit-parallel form decides 32 window starts per word operation: at
+    # least one ballot per mask row (one per class of the P = 20 set) and
+    # 32 positions, and one word step (a load and an AND) per pattern and
+    # 32-start microblock; its bytes are the text and one byte per
+    # microblock
     nmb24 = BLOCK_N // 32
-    occ_bound = bound(BLOCK_N + nmb24, BLOCK_N * 2 * len(PATS) * 2)
+    occ_bound = bound(BLOCK_N + nmb24,
+                      nmb24 * filter_tables(dt0.weights16, dt0.thresholds).R
+                      + nmb24 * 2 * len(PATS))
     cand28, surv28 = gate_counts
     lmax_s = int(dt_h.weights16.shape[0])
     gate_bound = bound(cand28 * (32 + lmax_s - 1 + 8) + 8 * surv28,

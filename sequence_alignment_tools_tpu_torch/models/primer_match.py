@@ -597,7 +597,8 @@ class PrimerMatchModel:
           scan and extension gate) for every scan it is available for;
         - else the array-native census (``scan_seed_arrays``, unsorted:
           the emit tails re-order anyway), with the native inline prefix
-          gate on the CPU or the slot gate on the device;
+          gate on the CPU or the slot gate on the device (none over an
+          alphabet the gate tables cannot hold);
         - else the ``scanner.scan`` generator (the host rung).
 
         Each gate keeps a superset of the candidates whose exact
@@ -612,8 +613,9 @@ class PrimerMatchModel:
                                                 self.k)
             return anchors, self._hid_lut(scanner, hid_of)[sids0]
         if scanner.census_on_device():
-            gates = {"ext_gate": ExtendGate(self._engine_gate(
+            gates = ({"ext_gate": ExtendGate(self._engine_gate(
                 scanner, dirs, ext_pats, geomB, hid_of), self.indels)}
+                if scanner.gate_alphabet_ok() else {})
         else:
             gates = {"gate": self._census_gate(scanner, dirs, ext_pats,
                                                hid_of)}

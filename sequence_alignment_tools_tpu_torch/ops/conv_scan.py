@@ -64,6 +64,7 @@ from ..device import resolve_device
 from .cuda.scan_kernel import long_form, scan_hits
 from .cuda.seed_gate import gated_hits
 from .cuda.slots import MerTables, scan_slots, slot_gated_hits
+from .gate import GATE_ALPHA
 from .tables import device_tables
 
 
@@ -347,12 +348,19 @@ class ConvScanner:
     def _slots_ok(self) -> bool:
         return self._radix_eligible() and self.census_on_device()
 
+    def gate_alphabet_ok(self) -> bool:
+        """Whether the extension gate's tables (:class:`..gate.GateTables`)
+        can hold this alphabet: fewer than ``GATE_ALPHA`` codes."""
+        return self.tables.alpha < GATE_ALPHA
+
     def gated_available(self, n: int) -> bool:
         """Whether :meth:`scan_gated` takes a seed scan of ``n``
         positions: every scan over a resident array that the host rung
         does not take, of at most ``_PBLOCK`` seeds (the fused route) or of
-        more literal seeds on a device census (the slots route)."""
+        more literal seeds on a device census (the slots route), over an
+        alphabet the gate tables hold."""
         return (self.mesh is None and n <= self._RESIDENT_MAX
+                and self.gate_alphabet_ok()
                 and not self._host_eligible(n)
                 and (self.tables.P <= self._PBLOCK or self._slots_ok()))
 
@@ -840,7 +848,8 @@ class ConvScanner:
             return None
         if not self._census_eligible(n):
             return None
-        if ext_gate is not None and self.census_on_device():
+        if (ext_gate is not None and self.census_on_device()
+                and self.gate_alphabet_ok()):
             _i, ends, pids = next(self._gated_stream(
                 [codes], ext_gate, ext_gate.indels, ext_gate.t.k, 1, True))
             pids = pids.astype(np.int64)

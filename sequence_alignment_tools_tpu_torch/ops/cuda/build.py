@@ -92,10 +92,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "scan_filter":
         lib.sat_scan_occupancy.restype = i32
         lib.sat_scan_occupancy.argtypes = [
-            vp, i64,            # codes, n
-            vp, vp,             # w, thr
-            i32, i32, i32,      # Lmax, alpha, P
-            i32,                # eos
+            vp, i64, i32,       # codes, n, eos
+            vp, i32,            # bits, R
+            vp, vp, i32, i32,   # ent, pat, P, J
+            vp, vp, i32, i32,   # cls_off, cls_rows, direct, small
             vp, i64,            # occ, nmb
             vp,                 # stream
         ]
@@ -143,6 +143,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp,                 # stream
         ]
     elif name == "sellers":
+        lib.sat_sellers_scratch.restype = i64
+        lib.sat_sellers_scratch.argtypes = [
+            i64, i32, i32, i32, i32,  # n, P, Lmax, aw, segc
+        ]
         lib.sat_sellers_scan.restype = i32
         lib.sat_sellers_scan.argtypes = [
             vp, i64,            # codes, n
@@ -151,5 +155,6 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             i32, i32, i32,      # eos, k, indels
             i32, i32,           # segc, halo
             vp, i64,            # out, cap
+            vp, i64,            # scratch, its bytes
             vp,                 # stream
         ]

@@ -1,5 +1,6 @@
-// Code shared by the scan kernels (scan_filter.cu, seed_gate.cu): pattern
-// chunks in shared memory, and the per-device launch configuration.
+// Code shared by the scan kernels: pattern chunks in shared memory
+// (seed_gate.cu), and the per-device launch configuration (every kernel
+// that sizes a persistent grid).
 //
 // A chunk holds, for patterns [p0, p0 + pc_cur), the int16 weights
 // [pc][Lmax][alpha] (pattern-major, so the 32 lanes of a warp read one

@@ -1,4 +1,5 @@
-// Microblock occupancy filter of the exact / k-mismatch scan, for sm_90a.
+// Microblock occupancy filter of the exact / k-mismatch scan, for sm_90a:
+// a warp bit-parallel k-mismatch filter over accept classes.
 //
 // Replaces the "occupancy" emit of the Pallas TPU kernel
 // sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py::_scan_kernel
@@ -9,32 +10,54 @@
 //   occ[m] = 1  iff  some window start t in [32m, 32m + 32) and some
 //   pattern p have  sum_j w[j, text[t + j], p] >= thr[p],
 //
-// with text at positions >= n read as the EOS code.  The weights are the
-// exact (unfolded) conv weights, so occ marks exactly the microblocks that
-// hold a hit start; the TPU kernel's base-class fold made its mask a
+// with text at positions >= n read as the EOS code.  Exact, not a
 // superset.
 //
-// What bounds it on an H100: not device memory (one byte of text per
-// position, read once) but the shared-memory weight lookups, P x Lmax of
-// them per position when every window is scored in full.  The design cuts
-// that count, not the lookup cost:
-//   - each pattern's score loop stops as soon as the weights still to come
-//     cannot lift it to the threshold (rem[] below, an upper bound computed
-//     per pattern chunk from the weights themselves).  On random DNA an
-//     exact 13..18-mer dies after ~1.3 positions on average;
-//   - a warp is one 32-position microblock: after each pattern it votes
-//     with __any_sync and stops at the first hit, since one hit decides
-//     the microblock's byte.
-// The TPU's phase transpose, lane shifts, base-class fold and int8 MXU
-// im2col exist for the TPU's vector units and are not carried over.  A
-// tensor-core (wgmma) or bit-parallel form is later work.
+// The weights the port builds (tables.py::conv_weights_f32) are 0/1 accept
+// weights plus, under poison_eos, a negative EOS column that no window can
+// outweigh.  scan_kernel.py::filter_tables turns a weight tensor of that
+// form into the operands here (and refuses any other):
+//   - classes: the distinct nonempty accept and kill sets of the
+//     (position, pattern) cells, each a bitset over the alphabet (a few
+//     for literal DNA, 16 for IUPAC under -w, up to 256 codes for raw or
+//     protein alphabets);
+//   - ent[p][j]: the accept class of cell (j, p) and its kill class
+//     (the codes with a negative entry), -1 for none;
+//   - pat[p]: jend (one past the last position with an accept or kill
+//     entry), the poison flag, and kp = jend - thr[p].
+// A window hits pattern p iff none of its first jend positions holds a
+// killed code and at most kp of them miss their accept class.
 //
-// Layout: one block of 256 threads scores 256 consecutive window starts
-// (8 microblocks) per tile and walks tiles with a grid stride.  The tile's
-// text plus its Lmax - 1 halo sits in shared memory as bytes; the int16
-// weights sit there in pattern chunks (all P at once when they fit, which
-// holds for P <= 2048 and Lmax <= 128 over a DNA alphabet), stored
-// pattern-major so the 32 lanes of a warp read one pattern row at a time.
+// What bounded the first form of this kernel (one thread per window
+// start, a dependent shared-memory weight lookup per start, pattern and
+// position, a warp vote per pattern, 96 KB of weights per block) was
+// instruction issue.  This kernel scores 32 window starts with one word
+// operation:
+//   - a warp owns a tile of 32 microblocks (1,024 starts), one lane per
+//     microblock.  It reads the tile's text plus its halo once, one byte
+//     per lane and 32-position word, and builds in shared memory one
+//     32-bit mask per mask row and word with __ballot_sync: bit b is set
+//     iff the code at that position lies in the row's set.  That is the
+//     only per-position work, amortised over every pattern;
+//   - per pattern and position j a lane funnel-shifts the class mask of
+//     (p, j) by j, which gives the verdict of position j for its 32
+//     starts at once.  k = 0 ANDs it into an alive word; k > 0 adds the
+//     misses into a bit-sliced counter that saturates at kp + 1; a kill
+//     mask clears starts outright.  The lane leaves a pattern when its
+//     alive word is 0 (after about log4(32) + 1 positions on random DNA)
+//     and stops at its first hitting pattern: no vote between lanes;
+//   - the class id of (p, j) is the same for the whole warp (a broadcast
+//     read through the read-only cache), and the 32 lanes read
+//     consecutive mask words (no bank conflicts: the row stride is odd).
+// Mask rows: one per class ("direct") while the classes are few; past
+// that one per code, a class mask then being the OR of its codes' rows
+// (the class lists cls_off / cls_rows), so shared memory stays bounded by
+// the alphabet.  Shared memory holds the row bitsets and each warp's
+// masks only: a few KB for DNA, so residency is bounded by registers.
+// Patterns, class ids and thresholds stay in device memory (L1 / L2), so
+// any P runs in one pass.  The bound is the text's bytes plus about one
+// ballot per mask row and 32 positions plus the word steps per pattern
+// and microblock (chip_smoke.py's occ_bound).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,112 +68,299 @@ namespace {
 
 using sat::full_grid;
 using sat::LaunchCache;
-using sat::per_pattern_bytes;
-using sat::round_up;
-using sat::stage_chunk;
 
-constexpr int kThreads = 256;  // window starts per tile, 8 warps
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSmemBudget = 96 * 1024;  // leaves room for 2 blocks per SM
-constexpr int kSmemMax = 232448;        // sm_90 per-block opt-in maximum
+constexpr uint32_t kNone = 0xffffffffu;  // no class: the empty set
+constexpr int kMaxWarps = 8;
+constexpr int kSmemMax = 232448;  // sm_90 per-block opt-in maximum
+constexpr int kBitWords = 8;      // a row's bitset: 256 codes
+constexpr int kSmallRows = 8;
 
-// Scores one chunk for this thread's window start; returns the warp's
-// vote (true when any lane of the warp hit any pattern of the chunk).
-__device__ bool scan_chunk(const uint8_t* txt, int Lmax, int alpha,
-                           int pc_cur, const int32_t* thr_s,
-                           const int32_t* jend_s, const int16_t* w_s,
-                           const int32_t* rem_s) {
-  const int row = Lmax * alpha;
-  const uint8_t* tp = txt + threadIdx.x;
-  for (int pl = 0; pl < pc_cur; ++pl) {
-    const bool hit = sat::window_hits(tp, w_s + pl * row, rem_s + pl * Lmax,
-                                      thr_s[pl], jend_s[pl], alpha);
-    if (__any_sync(kFull, hit)) return true;
-  }
-  return false;
+struct Geometry {
+  int W;   // mask words per row and tile: 32 + the halo's words + 1
+  int Ws;  // row stride in words (odd: conflict-free stores)
+  int warps;
+  int smem;
+};
+
+// The launch shape for J pattern positions and R mask rows (the same
+// arithmetic as scan_kernel.py::_filter_smem); warps < 1 when one warp's
+// masks do not fit a block.
+inline Geometry geometry(int J, int R) {
+  Geometry g;
+  g.W = 33 + ((J > 0 ? J - 1 : 0) >> 5);
+  g.Ws = g.W | 1;
+  const int bits = R * kBitWords * 4;
+  const int per_warp = R * g.Ws * 4;
+  int warps = per_warp > 0 ? (kSmemMax - bits) / per_warp : kMaxWarps;
+  if (warps > kMaxWarps) warps = kMaxWarps;
+  g.warps = warps;
+  g.smem = bits + (warps > 0 ? warps : 0) * per_warp;
+  return g;
 }
 
-__global__ void __launch_bounds__(kThreads)
-occupancy_kernel(const uint8_t* __restrict__ codes, int64_t n,
-                 const int16_t* __restrict__ w,
-                 const int32_t* __restrict__ thr, int Lmax, int alpha, int P,
-                 int eos, int text_bytes, int pc,
-                 uint8_t* __restrict__ occ, int64_t nmb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* txt = smem;
-  int32_t* thr_s = reinterpret_cast<int32_t*>(smem + text_bytes);
-  int32_t* jend_s = thr_s + pc;
-  int32_t* rem_s = jend_s + pc;
-  int16_t* w_s = reinterpret_cast<int16_t*>(rem_s + pc * Lmax);
+// The verdict word of one class at pattern position j for this lane's 32
+// starts: bit b set iff text[start_b + j] lies in the class.  `mw` is this
+// warp's mask rows, offset by the lane.
+template <bool kDirect>
+__device__ __forceinline__ uint32_t class_mask(
+    uint32_t cls, int j, const uint32_t* mw, int Ws,
+    const int32_t* __restrict__ cls_off,
+    const int32_t* __restrict__ cls_rows) {
+  if (cls == kNone) return 0;
+  const int q = j >> 5;
+  const int s = j & 31;
+  if (kDirect) {
+    const uint32_t* r = mw + cls * Ws + q;
+    return __funnelshift_r(r[0], r[1], s);
+  }
+  uint32_t m = 0;
+  const int end = __ldg(cls_off + cls + 1);
+  for (int i = __ldg(cls_off + cls); i < end; ++i) {
+    const uint32_t* r = mw + __ldg(cls_rows + i) * Ws + q;
+    m |= __funnelshift_r(r[0], r[1], s);
+  }
+  return m;
+}
 
+// Whether some start of this lane's microblock hits pattern p with
+// kp >= 1 misses allowed (kp < jend): a bit-sliced counter of misses per
+// start on kPlanes planes (the first `b` used) that kills a start at
+// kp + 1.  kPlanes = 16 (kp > 14, rare) keeps its planes in local memory
+// (loops not unrolled), so that the common paths keep their registers.
+template <bool kDirect, int kPlanes>
+__device__ bool count_hits(const uint2* __restrict__ e, int jend, int kp,
+                           bool poison, const uint32_t* mw, int Ws,
+                           const int32_t* __restrict__ cls_off,
+                           const int32_t* __restrict__ cls_rows) {
+  constexpr int kUnroll = kPlanes <= 4 ? kPlanes : 1;
+  const uint32_t top = static_cast<uint32_t>(kp) + 1u;
+  const int b = 32 - __clz(top);
+  uint32_t c[kPlanes];
+#pragma unroll kUnroll
+  for (int i = 0; i < kPlanes; ++i) c[i] = 0;
+  uint32_t alive = kFull;
+  for (int j = 0; j < jend; ++j) {
+    const uint2 id = __ldg(e + j);
+    if (poison) {
+      alive &= ~class_mask<kDirect>(id.y, j, mw, Ws, cls_off, cls_rows);
+    }
+    uint32_t carry =
+        ~class_mask<kDirect>(id.x, j, mw, Ws, cls_off, cls_rows) & alive;
+    uint32_t at_top = kFull;
+#pragma unroll kUnroll
+    for (int i = 0; i < kPlanes; ++i) {
+      if (i < b) {
+        const uint32_t t = c[i] & carry;
+        c[i] ^= carry;
+        carry = t;
+        at_top &= ((top >> i) & 1u) ? c[i] : ~c[i];
+      }
+    }
+    alive &= ~at_top;
+    if (alive == 0) return false;
+  }
+  return true;
+}
+
+template <bool kDirect>
+__device__ bool pattern_hits(const uint2* __restrict__ ent,
+                             const int2* __restrict__ pat, int p, int J,
+                             const uint32_t* mw, int Ws,
+                             const int32_t* __restrict__ cls_off,
+                             const int32_t* __restrict__ cls_rows) {
+  const int2 hd = __ldg(pat + p);
+  const int jend = hd.x & 0xffff;
+  const bool poison = (hd.x >> 16) & 1;
+  const int kp = hd.y;
+  if (kp < 0) return false;
+  const uint2* e = ent + static_cast<int64_t>(p) * J;
+  if (kp >= jend) {
+    // no count of misses can exclude a start: only a killed code can
+    if (!poison) return true;
+    uint32_t alive = kFull;
+    for (int j = 0; j < jend && alive != 0; ++j) {
+      alive &= ~class_mask<kDirect>(__ldg(e + j).y, j, mw, Ws, cls_off,
+                                    cls_rows);
+    }
+    return alive != 0;
+  }
+  if (kp == 0) {
+    // every position must accept (a killed code is a miss too); two
+    // positions a step, so that their loads overlap
+    uint32_t alive = kFull;
+    int j = 0;
+    for (; j + 1 < jend; j += 2) {
+      const uint32_t a0 = __ldg(e + j).x;
+      const uint32_t a1 = __ldg(e + j + 1).x;
+      alive &= class_mask<kDirect>(a0, j, mw, Ws, cls_off, cls_rows) &
+               class_mask<kDirect>(a1, j + 1, mw, Ws, cls_off, cls_rows);
+      if (alive == 0) return false;
+    }
+    if (j < jend) {
+      alive &= class_mask<kDirect>(__ldg(e + j).x, j, mw, Ws, cls_off,
+                                   cls_rows);
+    }
+    return alive != 0;
+  }
+  if (kp <= 2) {
+    return count_hits<kDirect, 2>(e, jend, kp, poison, mw, Ws, cls_off,
+                                  cls_rows);
+  }
+  if (kp <= 14) {
+    return count_hits<kDirect, 4>(e, jend, kp, poison, mw, Ws, cls_off,
+                                  cls_rows);
+  }
+  return count_hits<kDirect, 16>(e, jend, kp, poison, mw, Ws, cls_off,
+                                 cls_rows);
+}
+
+// kSmall: at most kSmallRows mask rows over an alphabet of at most 32
+// codes, whose bitset words the lanes keep in registers while they build
+// the masks.
+template <bool kDirect, bool kSmall>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+occupancy_kernel(const uint8_t* __restrict__ codes, int64_t n, int eos,
+                 const uint32_t* __restrict__ bits, int R,
+                 const uint2* __restrict__ ent,
+                 const int2* __restrict__ pat, int P, int J,
+                 const int32_t* __restrict__ cls_off,
+                 const int32_t* __restrict__ cls_rows, int W, int Ws,
+                 uint8_t* __restrict__ occ, int64_t nmb) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* bits_s = smem;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const bool single = pc >= P;
-  const int64_t ntiles = (nmb * 32 + kThreads - 1) / kThreads;
-  const int span = kThreads + Lmax - 1;
-
-  if (single) {
-    stage_chunk(w, thr, Lmax, alpha, P, 0, P, thr_s, jend_s, w_s, rem_s);
+  uint32_t* masks = smem + R * kBitWords +
+                    static_cast<int64_t>(warp) * R * Ws;
+  for (int i = threadIdx.x; i < R * kBitWords; i += blockDim.x) {
+    bits_s[i] = bits[i];
   }
-  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t base = tile * kThreads;
-    __syncthreads();  // the previous tile's readers are done with txt
-    for (int i = threadIdx.x; i < span; i += blockDim.x) {
-      const int64_t pos = base + i;
-      txt[i] = pos < n ? codes[pos] : static_cast<uint8_t>(eos);
+  __syncthreads();  // the only block-wide barrier: warps run on their own
+
+  uint32_t rw[kSmallRows];
+#pragma unroll
+  for (int r = 0; r < kSmallRows; ++r) {
+    rw[r] = kSmall && r < R ? bits_s[r * kBitWords] : 0;
+  }
+
+  const int64_t ntiles = (nmb + 31) / 32;
+  const int64_t wstride = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  const uint32_t* mw = masks + lane;
+  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
+                      warp;
+       tile < ntiles; tile += wstride) {
+    const int64_t base = tile * 1024;
+    // 1. the tile's mask rows: word w covers positions base + 32w + lane
+    int64_t pos = base + lane;
+    int next = pos < n ? __ldg(codes + pos) : eos;
+    for (int w = 0; w < W; ++w) {
+      const int c = next;
+      pos += 32;
+      if (w + 1 < W) next = pos < n ? __ldg(codes + pos) : eos;
+      if (kSmall) {
+        uint32_t mine = 0;
+#pragma unroll
+        for (int r = 0; r < kSmallRows; ++r) {
+          if (r < R) {
+            const uint32_t m = __ballot_sync(kFull, (rw[r] >> c) & 1u);
+            mine = lane == r ? m : mine;
+          }
+        }
+        if (lane < R) masks[lane * Ws + w] = mine;
+        continue;
+      }
+      const int cw = c >> 5;
+      const int cb = c & 31;
+      for (int r0 = 0; r0 < R; r0 += 32) {
+        const int rn = R - r0 < 32 ? R - r0 : 32;
+        uint32_t mine = 0;
+        for (int i = 0; i < rn; ++i) {
+          const uint32_t set = bits_s[(r0 + i) * kBitWords + cw];
+          const uint32_t m = __ballot_sync(kFull, (set >> cb) & 1u);
+          if (lane == i) mine = m;
+        }
+        if (lane < rn) masks[(r0 + lane) * Ws + w] = mine;
+      }
     }
-    __syncthreads();
+    __syncwarp();
+    // 2. this lane's microblock against the patterns, first hit wins
     bool any = false;
-    for (int p0 = 0; p0 < P; p0 += pc) {
-      const int pc_cur = P - p0 < pc ? P - p0 : pc;
-      if (!single) {
-        __syncthreads();  // every warp is done with the previous chunk
-        stage_chunk(w, thr, Lmax, alpha, P, p0, pc_cur, thr_s, jend_s, w_s,
-                    rem_s);
-      }
-      if (!any) {
-        any = scan_chunk(txt, Lmax, alpha, pc_cur, thr_s, jend_s, w_s,
-                         rem_s);
-      }
+    for (int p = 0; p < P && !any; ++p) {
+      any = pattern_hits<kDirect>(ent, pat, p, J, mw, Ws, cls_off,
+                                  cls_rows);
     }
-    const int64_t mb = base / 32 + warp;
-    if (lane == 0 && mb < nmb) occ[mb] = any ? 1 : 0;
+    const int64_t mb = tile * 32 + lane;
+    if (mb < nmb) occ[mb] = any ? 1 : 0;
+    __syncwarp();  // every lane is done with the masks before the next tile
   }
 }
 
-LaunchCache g_launch;
+LaunchCache g_launch[4];
+
+template <bool kDirect, bool kSmall>
+cudaError_t launch(const uint8_t* codes, int64_t n, int eos,
+                   const uint32_t* bits, int R, const uint2* ent,
+                   const int2* pat, int P, int J, const int32_t* cls_off,
+                   const int32_t* cls_rows, uint8_t* occ, int64_t nmb,
+                   cudaStream_t stream) {
+  const Geometry g = geometry(J, R);
+  if (g.warps < 1) return cudaErrorInvalidValue;
+  const int threads = g.warps * 32;
+  int64_t grid = 0;
+  cudaError_t err =
+      full_grid(occupancy_kernel<kDirect, kSmall>, threads, g.smem,
+                g_launch[(kDirect ? 2 : 0) + (kSmall ? 1 : 0)], &grid);
+  if (err != cudaSuccess) return err;
+  const int64_t ntiles = (nmb + 31) / 32;
+  const int64_t need = (ntiles + g.warps - 1) / g.warps;
+  if (grid > need) grid = need;
+  occupancy_kernel<kDirect, kSmall>
+      <<<static_cast<unsigned>(grid), threads, g.smem, stream>>>(
+          codes, n, eos, bits, R, ent, pat, P, J, cls_off, cls_rows, g.W,
+          g.Ws, occ, nmb);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-// occ[0..nmb) from codes[0..n) (uint8 codes < alpha), w [Lmax, alpha, P]
-// int16 and thr [P] int32, on `stream`.  nmb must be ceil(n / 32) or
-// more.  Returns the cudaError_t of the launch (0 on success).
-extern "C" int sat_scan_occupancy(const void* codes, int64_t n,
-                                  const void* w, const void* thr, int Lmax,
-                                  int alpha, int P, int eos, void* occ,
+// occ[0..nmb) from codes[0..n) (uint8), text past n read as `eos`, on
+// `stream`.  bits [R][8] uint32 (the mask rows' code sets), ent [P][J]
+// uint2, pat [P] int2, and in code mode (direct == 0) cls_off [C + 1]
+// and cls_rows int32, all built by scan_kernel.py::filter_tables; small
+// != 0 when R <= 8 and the alphabet has at most 32 codes.  nmb must be
+// ceil(n / 32) or more.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int sat_scan_occupancy(const void* codes, int64_t n, int eos,
+                                  const void* bits, int R, const void* ent,
+                                  const void* pat, int P, int J,
+                                  const void* cls_off, const void* cls_rows,
+                                  int direct, int small, void* occ,
                                   int64_t nmb, void* stream) {
   if (nmb <= 0) return 0;
-  if (Lmax < 1 || alpha < 1 || alpha > 256 || P < 1 || eos < 0 ||
-      eos >= alpha) {
+  if (R < 0 || P < 0 || J < 0 || J > 0xffff || eos < 0 || eos > 255 ||
+      (!direct && R > 256) || (small && (R > kSmallRows || eos > 31))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int text_bytes = round_up(kThreads + Lmax - 1, 16);
-  const int per = per_pattern_bytes(Lmax, alpha);
-  int pc = (kSmemBudget - text_bytes) / per;
-  if (pc < 1) pc = 1;
-  if (pc > P) pc = P;
-  const int smem = text_bytes + pc * per;
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t grid = 0;
-  const cudaError_t err =
-      full_grid(occupancy_kernel, kThreads, smem, g_launch, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t ntiles = (nmb * 32 + kThreads - 1) / kThreads;
-  if (grid > ntiles) grid = ntiles;
-  occupancy_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), n,
-      static_cast<const int16_t*>(w), static_cast<const int32_t*>(thr), Lmax,
-      alpha, P, eos, text_bytes, pc, static_cast<uint8_t*>(occ), nmb);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto c = static_cast<const uint8_t*>(codes);
+  const auto b = static_cast<const uint32_t*>(bits);
+  const auto e = static_cast<const uint2*>(ent);
+  const auto pt = static_cast<const int2*>(pat);
+  const auto co = static_cast<const int32_t*>(cls_off);
+  const auto cr = static_cast<const int32_t*>(cls_rows);
+  const auto o = static_cast<uint8_t*>(occ);
+  cudaError_t err;
+  if (direct) {
+    err = small ? launch<true, true>(c, n, eos, b, R, e, pt, P, J, co, cr, o,
+                                     nmb, s)
+                : launch<true, false>(c, n, eos, b, R, e, pt, P, J, co, cr,
+                                      o, nmb, s);
+  } else {
+    err = small ? launch<false, true>(c, n, eos, b, R, e, pt, P, J, co, cr,
+                                      o, nmb, s)
+                : launch<false, false>(c, n, eos, b, R, e, pt, P, J, co, cr,
+                                       o, nmb, s);
+  }
+  return static_cast<int>(err);
 }

@@ -4,8 +4,9 @@ Counterpart of ``sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py``:
 
 - :func:`scan_occupancy` is the microblock filter, the "occupancy" emit
   of that module's ``_scan_kernel``.  On a CUDA tensor it launches the
-  hand-written kernel ``csrc/scan_filter.cu``; on a CPU tensor it runs
-  :func:`scan_occupancy_ref`, the plain PyTorch version of the same
+  hand-written kernel ``csrc/scan_filter.cu`` (a bit-parallel k-mismatch
+  filter over the operands of :func:`filter_tables`); on a CPU tensor it
+  runs :func:`scan_occupancy_ref`, the plain PyTorch version of the same
   function, which the tests hold against the JAX package.
 - :func:`scan_hits` is ``pallas_scan_hits``: filter, compaction of the
   candidate microblocks, window gather, exact one-hot rescore, compaction
@@ -14,12 +15,20 @@ Counterpart of ``sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py``:
 
 from __future__ import annotations
 
+import weakref
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from ..compact import compact_mask
 
-# the filter's microblock: one CUDA warp scores one microblock
+# the filter's microblock: one lane of a CUDA warp scores one microblock
 MB = 32
+# the kernel's mask rows: one per class while there are at most this many
+# (or no more than the codes they use), else one per code
+_DIRECT_ROWS = 64
+_SMEM_MAX = 232448  # sm_90 shared memory per block (opt-in maximum)
 
 
 def _nmb(n: int, MB: int) -> int:
@@ -53,6 +62,153 @@ def scan_occupancy_ref(codes: torch.Tensor, w: torch.Tensor,
     return hit.view(nmb, MB).any(dim=1)
 
 
+@dataclass(frozen=True)
+class FilterTables:
+    """The operands of ``csrc/scan_filter.cu`` for one weight tensor.
+
+    A class is a distinct nonempty set of codes that some (position,
+    pattern) cell accepts (weight 1) or kills (a negative weight, which
+    no window can outweigh).  ``ent`` [P, J, 2] int32: the accept and kill
+    class of each cell, -1 for none; ``pat`` [P, 2] int32: ``jend |
+    poisoned << 16`` (jend one past the last cell with an accept or kill
+    set) and ``kp = jend - thr`` (the misses a window may have; < 0 never
+    hits, >= jend hits unless killed).  The kernel builds one mask per
+    row of ``bits`` [R, 8] int32 (bit ``c & 31`` of word ``c >> 5``: code
+    c is in the row's set): in ``direct`` form row i is class i; else row
+    i is one code, and class c is the OR of rows
+    ``cls_rows[cls_off[c] : cls_off[c + 1]]``."""
+
+    bits: torch.Tensor
+    ent: torch.Tensor
+    pat: torch.Tensor
+    cls_off: torch.Tensor
+    cls_rows: torch.Tensor
+    direct: bool
+
+    @property
+    def R(self) -> int:
+        return self.bits.shape[0]
+
+    @property
+    def P(self) -> int:
+        return self.pat.shape[0]
+
+    @property
+    def J(self) -> int:
+        return self.ent.shape[1]
+
+
+def _filter_smem(J: int, R: int) -> int:
+    """Shared-memory bytes of one warp's mask rows and the row bitsets
+    (``scan_filter.cu``'s ``geometry``): 33 words per row and tile plus
+    one per 32 halo positions, at an odd stride."""
+    ws = (33 + (max(J - 1, 0) >> 5)) | 1
+    return R * 32 + R * ws * 4
+
+
+def _build_filter_tables(w: torch.Tensor, thr: torch.Tensor) -> FilterTables:
+    Lmax, alpha, P = w.shape
+    if alpha > 256 or thr.shape != (P,):
+        raise ValueError(f"filter tables: alphabet {alpha} past 256 or "
+                         f"thresholds {tuple(thr.shape)} for P {P}")
+    wn = w.detach().cpu().numpy().astype(np.int32).transpose(2, 0, 1)
+    tn = thr.detach().cpu().numpy().astype(np.int64)
+    acc = wn == 1
+    kill = wn < 0
+    if ((wn != 0) & ~acc & ~kill).any():
+        raise ValueError("scan filter: weights must be 0, 1 or a negative "
+                         "poison")
+    # a negative entry must sink any window that meets it: the other
+    # positions add at most one each
+    maxpos = acc.any(axis=2).sum(axis=1)
+    floor = np.iinfo(np.int32).min
+    least = np.where(kill, wn, floor).max(axis=(1, 2), initial=floor)
+    weak = kill.any(axis=(1, 2)) & (maxpos + least.astype(np.int64) >= tn)
+    if weak.any():
+        raise ValueError(
+            f"scan filter: pattern {int(np.flatnonzero(weak)[0])} has a "
+            "negative weight that a window can outweigh")
+    used = (acc | kill).any(axis=2)  # [P, Lmax]
+    jend = np.where(used.any(axis=1), Lmax - np.argmax(used[:, ::-1], axis=1),
+                    0)
+    J = int(jend.max(initial=0))
+    if J > 0xFFFF:
+        raise ValueError(f"scan filter: patterns of {J} positions")
+    nb = -(-alpha // 8)
+    packed = np.zeros((P, J, 2, 32), np.uint8)
+    packed[:, :, 0, :nb] = np.packbits(acc[:, :J], axis=-1,
+                                       bitorder="little")
+    packed[:, :, 1, :nb] = np.packbits(kill[:, :J], axis=-1,
+                                       bitorder="little")
+    packed = packed.reshape(-1, 32)
+    live = packed.any(axis=1)
+    keys = np.ascontiguousarray(packed[live]).view(
+        np.dtype((np.void, 32))).ravel()
+    uniq, inv = np.unique(keys, return_inverse=True)
+    ids = np.full(len(packed), -1, np.int64)
+    ids[live] = inv.ravel()
+    sets = np.frombuffer(uniq.tobytes(), np.uint8).reshape(-1, 32)
+    set_bits = np.unpackbits(sets, axis=1, bitorder="little").astype(bool)
+    codes_used = np.flatnonzero(set_bits.any(axis=0))
+    C = len(uniq)
+    direct = C <= max(_DIRECT_ROWS, len(codes_used))
+    if _filter_smem(J, C if direct else len(codes_used)) > _SMEM_MAX:
+        direct = not direct
+        if _filter_smem(J, C if direct else len(codes_used)) > _SMEM_MAX:
+            raise ValueError(f"scan filter: {C} classes over "
+                             f"{len(codes_used)} codes at {J} positions "
+                             "exceed shared memory")
+    if direct:
+        row_sets = sets
+        cls_off = np.zeros(0, np.int32)
+        cls_rows = np.zeros(0, np.int32)
+    else:
+        row_of = np.full(256, -1, np.int64)
+        row_of[codes_used] = np.arange(len(codes_used))
+        one = np.zeros((len(codes_used), 256), bool)
+        one[np.arange(len(codes_used)), codes_used] = True
+        row_sets = np.packbits(one, axis=1, bitorder="little")
+        ci, cc = np.nonzero(set_bits)
+        cls_rows = row_of[cc].astype(np.int32)
+        cls_off = np.searchsorted(ci, np.arange(C + 1)).astype(np.int32)
+    bits = np.ascontiguousarray(row_sets, np.uint8).reshape(-1, 32).view(
+        "<u4").astype(np.uint32).view(np.int32)
+    kp = np.clip(jend - tn, -1, jend)
+    poisoned = kill.any(axis=(1, 2))
+    pat = np.stack([jend | (poisoned.astype(np.int64) << 16), kp], axis=1)
+    dev = w.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return FilterTables(bits=put(bits.reshape(-1, 8)),
+                        ent=put(ids.reshape(P, J, 2)), pat=put(pat),
+                        cls_off=put(cls_off), cls_rows=put(cls_rows),
+                        direct=bool(direct))
+
+
+_FT_CACHE: dict = {}
+
+
+def filter_tables(w: torch.Tensor, thr: torch.Tensor) -> FilterTables:
+    """The :class:`FilterTables` of weights ``w`` [Lmax, alpha, P] and
+    thresholds ``thr`` [P], on their device, built once per pair of
+    tensors (kept while both live).  Raises ``ValueError`` when ``w`` is
+    not of the form the port's weight tables have: entries 0, 1 or
+    negative, each negative entry low enough that no window meeting it
+    reaches its pattern's threshold."""
+    key = (id(w), id(thr))
+    hit = _FT_CACHE.get(key)
+    if hit is not None and hit[0]() is w and hit[1]() is thr:
+        return hit[2]
+    ft = _build_filter_tables(w, thr)
+    for k in [k for k, v in _FT_CACHE.items()
+              if v[0]() is None or v[1]() is None]:
+        del _FT_CACHE[k]
+    _FT_CACHE[key] = (weakref.ref(w), weakref.ref(thr), ft)
+    return ft
+
+
 def scan_occupancy(codes: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
                    n: int, eos: int, MB: int = MB) -> torch.Tensor:
     """Microblock occupancy of the scan (see :func:`scan_occupancy_ref`).
@@ -60,9 +216,11 @@ def scan_occupancy(codes: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
     ``codes``: uint8 [>= n], every code < alpha; ``w``: int16
     [Lmax, alpha, P]; ``thr``: int32 [P]; ``eos``: the code read past
     ``n``.  On a CUDA tensor this launches ``csrc/scan_filter.cu`` on the
-    current stream (``MB`` must be 32, one warp) and counts the launch in
-    ``scan_occupancy.launches``; on a CPU tensor it is
-    :func:`scan_occupancy_ref`."""
+    current stream (``MB`` must be 32, one lane's word) over the
+    :func:`filter_tables` of ``w`` and ``thr`` (which raises
+    ``ValueError`` for weights not of the port's 0/1 + poison form) and
+    counts the launch in ``scan_occupancy.launches``; on a CPU tensor it
+    is :func:`scan_occupancy_ref`."""
     if codes.device.type == "cpu":
         return scan_occupancy_ref(codes, w, thr, n, eos, MB)
     if codes.device.type != "cuda":
@@ -70,7 +228,7 @@ def scan_occupancy(codes: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
     Lmax, alpha, P = w.shape
     if MB != 32:
         raise ValueError("the CUDA scan filter scores 32-position "
-                         f"microblocks (one warp each), got MB={MB}")
+                         f"microblocks (one lane's word each), got MB={MB}")
     if codes.dtype != torch.uint8 or w.dtype != torch.int16 \
             or thr.dtype != torch.int32:
         raise TypeError("scan_occupancy wants uint8 codes, int16 weights "
@@ -86,6 +244,7 @@ def scan_occupancy(codes: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
                          f"w {tuple(w.shape)}, thr {tuple(thr.shape)}")
     if not 0 <= eos < alpha:
         raise ValueError(f"eos code {eos} outside the alphabet [0, {alpha})")
+    ft = filter_tables(w, thr)
     from . import build
 
     lib = build.library("scan_filter")
@@ -94,8 +253,10 @@ def scan_occupancy(codes: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.sat_scan_occupancy(
-            codes.data_ptr(), n, w.data_ptr(), thr.data_ptr(),
-            Lmax, alpha, P, eos, occ.data_ptr(), nmb, stream)
+            codes.data_ptr(), n, eos, ft.bits.data_ptr(), ft.R,
+            ft.ent.data_ptr(), ft.pat.data_ptr(), ft.P, ft.J,
+            ft.cls_off.data_ptr(), ft.cls_rows.data_ptr(), int(ft.direct),
+            int(ft.R <= 8 and alpha <= 32), occ.data_ptr(), nmb, stream)
     if rc != 0:
         raise RuntimeError(f"scan_filter launch failed: cudaError_t {rc}")
     scan_occupancy.launches += 1

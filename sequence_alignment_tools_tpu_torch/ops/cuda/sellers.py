@@ -30,9 +30,9 @@ import torch
 
 # the kernel keeps each DP cell in one byte, capped at k + 1
 MAX_K = 254
-# shared memory per block: the accept words and 128 columns of Lmax bytes
-_SMEM_MAX = 232448
-_THREADS = 128
+# the most device scratch one launch takes for the columns of long
+# patterns; past it the segments grow (fewer threads, fewer columns)
+_SCRATCH_MAX = 1 << 30
 
 
 @dataclass(frozen=True)
@@ -164,10 +164,11 @@ def sellers_ref(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
 
 def kernel_takes(st: SellersTables, k: int) -> bool:
     """Whether ``csrc/sellers.cu`` takes this pattern set and k: byte
-    cells, a grid row per pattern, and one block's shared memory holding
-    the pattern's accept words and 128 columns of Lmax bytes."""
-    smem = st.Lmax * st.aw * 4 + st.Lmax * _THREADS
-    return (0 <= k <= MAX_K and st.P <= 65535 and smem <= _SMEM_MAX
+    cells (k <= 254), a grid row per pattern (P <= 65,535) and patterns of
+    at least one position.  Any Lmax: the threads per block shrink (128,
+    64, 32) to keep the columns in shared memory, and past that their
+    lower cells live in device scratch."""
+    return (0 <= k <= MAX_K and 1 <= st.P <= 65535
             and bool((st.lens >= 1).all()))
 
 
@@ -180,9 +181,10 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
 
     ``codes`` uint8 [>= n]; ``st`` a :class:`SellersTables` on the same
     device.  On a CUDA tensor this launches ``csrc/sellers.cu`` on the
-    current stream and counts the launch in ``sellers_scan.launches``; on
-    a CPU tensor it is :func:`sellers_ref`.  Nothing here waits for the
-    device."""
+    current stream (with a device scratch buffer for the DP columns when
+    they do not fit shared memory, at most ``_SCRATCH_MAX`` bytes) and
+    counts the launch in ``sellers_scan.launches``; on a CPU tensor it is
+    :func:`sellers_ref`.  Nothing here waits for the device."""
     if codes.device.type == "cpu":
         return sellers_ref(codes, n, st, eos, k, indels, cap)
     if codes.device.type != "cuda":
@@ -207,13 +209,19 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
     lib = build.library("sellers")
     halo = st.Lmax + k
     segc = segc or sellers_segc(n, st.P, halo)
+    while (lib.sat_sellers_scratch(n, st.P, st.Lmax, st.aw, segc)
+           > _SCRATCH_MAX and segc < n):
+        segc *= 2
+    nscratch = lib.sat_sellers_scratch(n, st.P, st.Lmax, st.aw, segc)
+    scratch = torch.empty(nscratch, dtype=torch.uint8, device=codes.device)
     out = torch.zeros(1 + 3 * cap, dtype=torch.int32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.sat_sellers_scan(
             codes.data_ptr(), n, st.acc.data_ptr(), st.lens.data_ptr(),
             st.P, st.Lmax, st.aw, st.alpha, eos, k, int(indels), segc, halo,
-            out.data_ptr(), cap, stream)
+            out.data_ptr(), cap, scratch.data_ptr() if nscratch else None,
+            nscratch, stream)
     if rc != 0:
         raise RuntimeError(f"sellers_scan launch failed: cudaError_t {rc}")
     sellers_scan.launches += 1

@@ -24,6 +24,11 @@ import numpy as np
 import torch
 
 
+# the accept words hold one bit per code below this (int32, bit 30 the
+# out-of-range sentinel): wider alphabets take the ungated routes
+GATE_ALPHA = 30
+
+
 class GateTables:
     """Per-seed gate metadata (built once per engine run).
 
@@ -40,7 +45,7 @@ class GateTables:
     def __init__(self, accept: np.ndarray, glen: np.ndarray,
                  gdir: np.ndarray, goff: np.ndarray, k: int, band: int):
         S, Lg, alpha = accept.shape
-        if alpha >= 30:
+        if alpha >= GATE_ALPHA:
             raise NotImplementedError(
                 f"gate accept alphabet {alpha} exceeds the int32 bit pack")
         bits = np.zeros((S, Lg), np.int32)

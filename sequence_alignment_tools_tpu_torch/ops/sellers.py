@@ -140,9 +140,8 @@ class SellersScanner:
 
     def kernel_available(self, n: int) -> bool:
         """Whether a device kernel takes this scan: the Myers kernel, or
-        else the Sellers row-DP kernel (byte cells, so k <= 254; the
-        pattern's accept words and 128 columns in one block's shared
-        memory)."""
+        else the Sellers row-DP kernel (byte cells, so k <= 254; at most
+        65,535 patterns; any pattern length)."""
         if self.myers_available(n):
             return True
         return self.tables.P > 0 and kernel_takes(self._sellers_t(),

@@ -29,6 +29,8 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
     scan_occupancy_ref,
 )
 from sequence_alignment_tools_tpu_torch.ops.tables import device_tables
+from test_torch_filter import CASES as FILTER_CASES
+from test_torch_filter import case_inputs as filter_case
 
 PATS = ["AGAAGCGAGTTCT", "CGCCAGCAGAGTT", "TTTTCTGAGAATCAAG",
         "CTATTGATAAGGGAGTGC", "ATGGCGGTTTTGTCGAA"]
@@ -197,3 +199,32 @@ def test_cuda_kernel_matches_plain(db, k):
         torch.cuda.synchronize()
         assert scan_occupancy.launches == before + 1
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FILTER_CASES)
+def test_cuda_filter_cases_match_plain(name):
+    """The bit-parallel kernel on every case of ``tests/test_torch_filter.py``
+    (IUPAC, poisoned -K, a 41-code alphabet, Lmax 1 / 33 / 200, thr <= 0,
+    an empty accept set, P = 2048, per-code mask rows, odd n)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    codes, n, eos, w, thr = filter_case(name)
+    codes, w, thr = codes.cuda(), w.cuda(), thr.cuda()
+    before = scan_occupancy.launches
+    got = scan_occupancy(codes, w, thr, n, eos)
+    want = scan_occupancy_ref(codes, w, thr, n, eos)
+    torch.cuda.synchronize()
+    assert scan_occupancy.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_filter_refuses_other_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    codes, n, eos, w, thr = filter_case("literal DNA")
+    w = w.clone()
+    w[0, 0, 0] = 2
+    with pytest.raises(ValueError):
+        scan_occupancy(codes.cuda(), w.cuda(), thr.cuda(), n, eos)

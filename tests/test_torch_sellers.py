@@ -180,3 +180,38 @@ def test_cuda_kernel_matches_plain(k, indels):
         assert sellers_scan.launches == before + 1
         assert int(got[0]) == int(want[0]) > 0
         assert triples(got) == triples(want)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,indels,longest", [(2, True, 3_000),
+                                              (2, False, 3_000),
+                                              (4, True, 3_000),
+                                              (2, True, 7_500)])
+def test_cuda_kernel_long_patterns(k, indels, longest):
+    """Patterns of 1,800 to 3,000 bases (64 threads a block, the columns
+    in shared memory) and up to 7,500 (the lower cells of the columns in
+    device scratch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n = 120_000
+    codes, kw = text_db(n, 40 + k, entries=6)
+    text = "".join("ACGT"[c] if c < 4 else "A" for c in codes)
+    rng = np.random.default_rng(k)
+    pats = []
+    for i, (at, ln) in enumerate(((3_000, longest), (40_000, 2_500),
+                                  (80_000, 1_800))):
+        p = list(text[at : at + ln])
+        for _ in range(i):
+            j = int(rng.integers(10, ln - 10))
+            p[j] = "ACGT"[("ACGT".index(p[j]) + 1) % 4]
+        pats.append("".join(p))
+    _jt, pt = both_tables(pats, kw)
+    st = sellers_tables(pt).to("cuda")
+    dev = torch.from_numpy(codes).cuda()
+    for nn in (n, n - 777):
+        got = sellers_scan(dev, nn, st, EOS, k, indels, CAP)
+        want = sellers_ref(dev, nn, st, EOS, k, indels, CAP)
+        torch.cuda.synchronize()
+        assert int(got[0]) == int(want[0]) > 0
+        assert triples(got) == triples(want)
