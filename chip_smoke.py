@@ -21,7 +21,8 @@ output:
    2^28 against plain; yardsticks on their own lines: the filter on the
    k = 1 seeds and ``-K 2`` at 2^28 (against plain), an older commit's
    filter timed beside it when ``PARENT_DIR`` holds its source, and the
-   census kernel (``scan_slots``) over the same 20 primers; then the same
+   census kernel (``scan_slots``) over the same 20 primers (an older
+   commit's beside it likewise); then the same
    device route on a small scan (n < 2^20), on 140-base patterns and on
    degenerate primers over an IUPAC database, each launching the kernel;
 4. serving: ``scan_stream`` over 16 blocks of 2^24 equals per-block scans,
@@ -46,9 +47,10 @@ output:
    ``myers_pairs_ref`` (the bench primers, packed two to a word, k = 1, 2,
    3) and ``sellers_scan`` against ``sellers_ref`` (100 patterns of 60 to
    100 bases at k = 1, 2, 4, without indels, and degenerate primers over
-   an IUPAC database under ``-w``; patterns of about 3,200 bases, 64
-   threads a block, and of about 7,400, columns tiled into device
-   scratch), both also at cap 1 (the overflow);
+   an IUPAC database under ``-w``; patterns of about 3,200 and about
+   7,400 bases, about 100 and 232 words, all but the first in device
+   scratch), both also at cap 1 (the overflow); the older commit's
+   Sellers kernel timed beside the long-pattern shapes;
 9. the k = 2 main path: ``PrimerMatchModel(k=2, indels=True)`` (the
    filter engine, Myers route) over the resident 2^28 database, engine
    hits equal to the host route's (the native Sellers rows), every exact,
@@ -60,7 +62,9 @@ output:
     with the primers planted; engine hits equal to the host route's (the
     native Sellers rows over pattern groups that fit the native machine);
     an older commit's Sellers kernel timed beside it when ``PARENT_DIR``
-    holds its source;
+    holds its source, with and without indels; ``engine_hits_stream``
+    throughput with the host tail, the tail alone and a ``torch.profiler``
+    breakdown;
 11. the slot kernels against plain: ``scan_slots`` against
     ``scan_slots_ref`` at 2^20 positions with 5,000 seeds of mixed lengths
     8 to 24 (duplicates, one seed planted across an EOS) and at cap 1 (the
@@ -76,7 +80,8 @@ output:
     engine (100,000 half seeds: ``scan_slots``, ``gate_slots``, native
     extension) against the CPU route (native census, inline gate) over a
     2^24 prefix, then over 2^28, with a ``torch.profiler`` breakdown of
-    both;
+    both; an older commit's census kernel timed beside this one on both
+    seed sets when ``PARENT_DIR`` holds its source;
 13. pcr_match: ``pairs_stream`` of 10 primer pairs over the resident 2^28
     database at k = 0, equal to ``pairs``;
 14. CLI: ``-k 2 -r -c``, ``-k 2 -r``, ``-K 2 -r`` and the long primers with
@@ -328,17 +333,21 @@ def wide_db(n, seed):
 # sellers.cu and scan_chunk.cuh; 40b2571 below), timed beside this
 # checkout's kernels when their sources have been unpacked into this
 # git-ignored directory:
-#   mkdir -p build/parent_kernels && for f in scan_filter.cu sellers.cu \
-#     scan_chunk.cuh; do git show 40b2571:sequence_alignment_tools_tpu_torch/\
-#     ops/cuda/csrc/$f > build/parent_kernels/$f; done
+#   mkdir -p build/parent_kernels && for f in sellers.cu seed_slots.cu \
+#     slot_out.cuh scan_chunk.cuh; do git show e27d89a:\
+#     sequence_alignment_tools_tpu_torch/ops/cuda/csrc/$f \
+#     > build/parent_kernels/$f; done
+# (add scan_filter.cu to the list to time an older filter too)
 PARENT_DIR = os.path.join("build", "parent_kernels")
 
 
 def parent_kernels():
-    """(filter, sellers): ``filter(codes, w, thr, n, eos) -> occ`` and
-    ``sellers(codes, n, st, eos, k, indels, cap, segc) -> row`` through
-    the older commit's kernels built from ``PARENT_DIR``, each None when
-    its source is not there (a plain checkout)."""
+    """{name: fn} of the older commit's kernels built from ``PARENT_DIR``
+    (empty for a plain checkout): ``scan_filter(codes, w, thr, n, eos)
+    -> occ``, ``sellers(codes, n, st, eos, k, indels, cap) -> row`` (the
+    byte-cell row DP with its own wrapper's segments) and
+    ``seed_slots(codes, n, mt, cap) -> row``, each present when its source
+    is."""
     import ctypes
 
     import torch
@@ -350,7 +359,7 @@ def parent_kernels():
 
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     procs = {}
-    for name in ("scan_filter", "sellers"):
+    for name in ("scan_filter", "sellers", "seed_slots"):
         src = os.path.join(PARENT_DIR, name + ".cu")
         if os.path.exists(src):
             out = os.path.abspath(os.path.join(PARENT_DIR, f"lib{name}.so"))
@@ -367,7 +376,7 @@ def parent_kernels():
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    filt = sel = None
+    fns = {}
     if "scan_filter" in libs:
         ffn = libs["scan_filter"].sat_scan_occupancy
         ffn.restype = i32
@@ -383,24 +392,68 @@ def parent_kernels():
                 raise RuntimeError(f"parent scan_filter: cudaError_t {rc}")
             return occ
 
+        fns["scan_filter"] = filt
     if "sellers" in libs:
-        sfn = libs["sellers"].sat_sellers_scan
+        slib = libs["sellers"]
+        slib.sat_sellers_scratch.restype = i64
+        slib.sat_sellers_scratch.argtypes = [i64, i32, i32, i32, i32]
+        sfn = slib.sat_sellers_scan
         sfn.restype = i32
         sfn.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-                        i32, i32, vp, i64, vp]
+                        i32, i32, vp, i64, vp, i64, vp]
 
-        def sel(codes, n, st, eos, k, indels, cap, segc):
+        def sel(codes, n, st, eos, k, indels, cap):
+            halo = st.Lmax + k
+            # its wrapper's segments: about 2^18 (segment, pattern)
+            # threads, at least four halos and at most 8192 positions
+            segc = int(min(max(n * st.P >> 18, 4 * halo, 64), 8192))
+            nscr = slib.sat_sellers_scratch(n, st.P, st.Lmax, st.aw, segc)
+            scratch = torch.empty(nscr, dtype=torch.uint8,
+                                  device=codes.device)
             out = torch.zeros(1 + 3 * cap, dtype=torch.int32,
                               device=codes.device)
             rc = sfn(codes.data_ptr(), n, st.acc.data_ptr(),
                      st.lens.data_ptr(), st.P, st.Lmax, st.aw, st.alpha, eos,
-                     k, int(indels), segc, st.Lmax + k, out.data_ptr(), cap,
-                     stream())
+                     k, int(indels), segc, halo, out.data_ptr(), cap,
+                     scratch.data_ptr() if nscr else None, nscr, stream())
             if rc:
                 raise RuntimeError(f"parent sellers: cudaError_t {rc}")
             return out
 
-    return filt, sel
+        fns["sellers"] = sel
+    if "seed_slots" in libs:
+        cfn = libs["seed_slots"].sat_seed_slots
+        cfn.restype = i32
+        cfn.argtypes = [vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp, i64,
+                        vp]
+
+        def census(codes, n, mt, cap):
+            out = torch.zeros(1 + 2 * cap, dtype=torch.int32,
+                              device=codes.device)
+            rc = cfn(codes.data_ptr(), n, mt.alpha, mt.cls.data_ptr(),
+                     len(mt.lens), mt.Lmax, mt.keys.data_ptr(),
+                     mt.head.data_ptr(), mt.enext.data_ptr(),
+                     mt.epid.data_ptr(), out.data_ptr(), cap, stream())
+            if rc:
+                raise RuntimeError(f"parent seed_slots: cudaError_t {rc}")
+            return out
+
+        fns["seed_slots"] = census
+    return fns
+
+
+def beside_parent(label, new, old, reps, smi):
+    """Time ``new()`` and ``old()`` in turns (parent, new, new, parent;
+    CUDA events, median of ``reps``), log the line and return (new ms,
+    parent ms), the means of the two calls each."""
+    p1 = cuda_ms(old, reps=reps)
+    n1 = cuda_ms(new, reps=reps)
+    n2 = cuda_ms(new, reps=reps)
+    p2 = cuda_ms(old, reps=reps)
+    log(f"{label} on {smi}: this kernel {n1:.4f}, {n2:.4f} ms; older "
+        f"kernel {p1:.4f}, {p2:.4f} ms (CUDA events, median; parent, new, "
+        f"new, parent)")
+    return (n1 + n2) / 2, (p1 + p2) / 2
 
 
 def device_route_vs_host(name, tables, codes, dev):
@@ -858,10 +911,11 @@ def main():
     libs = build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(sorted(libs))})")
-    parent, parent_sellers = parent_kernels()
-    log("older scan_filter.cu and sellers.cu: "
-        + ("built from " + PARENT_DIR if parent else
-           "not unpacked here, no comparison"))
+    parents = parent_kernels()
+    parent = parents.get("scan_filter")
+    log("older kernels: " + (", ".join(sorted(parents)) + " built from "
+                             + PARENT_DIR if parents else
+                             "not unpacked here, no comparison"))
 
     # 2. kernel against plain at the serving block size
     db, planted, variants = make_db(MAIN_N, SEED)
@@ -1025,15 +1079,9 @@ def main():
             continue
         if not torch.equal(parent(*args), occ_new):
             raise AssertionError(f"parent kernel differs: {label}")
-        p1 = cuda_ms(lambda: parent(*args), reps=reps)
-        n1 = cuda_ms(lambda: scan_occupancy(*args), reps=reps)
-        n2 = cuda_ms(lambda: scan_occupancy(*args), reps=reps)
-        p2 = cuda_ms(lambda: parent(*args), reps=reps)
-        filter_ms[label] = ((n1 + n2) / 2, (p1 + p2) / 2)
-        log(f"scan_occupancy at {label} on {smi}: bit-parallel kernel "
-            f"{n1:.4f}, {n2:.4f} ms; older kernel {p1:.4f}, "
-            f"{p2:.4f} ms (CUDA events, median; parent, new, new, parent; "
-            f"equal occupancy)")
+        filter_ms[label] = beside_parent(
+            f"scan_occupancy at {label} (equal occupancy)",
+            lambda: scan_occupancy(*args), lambda: parent(*args), reps, smi)
     mt20 = sc._mer_dev()
     cap20 = sc._slot_cap_for(MAIN_N)
     ends_c, pids_c = sc._census_device(codes, MAIN_N, sort=True)
@@ -1043,6 +1091,12 @@ def main():
                              "main path's hits")
     census_ms = cuda_ms(lambda: scan_slots(main_dev, MAIN_N, mt20, cap20),
                         reps=10)
+    if "seed_slots" in parents:
+        census_ms, _old = beside_parent(
+            "census yardstick, scan_slots over the 20 literal primers",
+            lambda: scan_slots(main_dev, MAIN_N, mt20, cap20),
+            lambda: parents["seed_slots"](main_dev, MAIN_N, mt20, cap20), 10,
+            smi)
     log(f"census yardstick: scan_slots over the 20 literal primers "
         f"({len(mt20.lens)} length classes), n=2^28 on {smi}: "
         f"{census_ms:.4f} ms (CUDA events, median), {len(ends_c)} hits == "
@@ -1224,7 +1278,6 @@ def main():
     from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
         sellers_ref,
         sellers_scan,
-        sellers_segc,
         sellers_tables,
     )
 
@@ -1262,8 +1315,8 @@ def main():
          2, True, 1 << 20),
         (f"P={st_l.P} k=2, cap 1", "sellers_scan", kdev, KEDIT_N, st_l, EOS,
          2, True, 1)]
-    # patterns of 2,800 to 3,200 bases (and reverse complements): their
-    # columns do not fit shared memory and live in device scratch
+    # patterns of 2,800 to 3,200 bases (and reverse complements): about
+    # 100 words each, all but the first in device scratch
     xl_n = 1 << 21
     xl_text = "".join("ACGT"[c] if c < 4 else "A" for c in codes[:xl_n])
     xl_pats = [edit(kr, xl_text[400_000 * i + 5 : 400_000 * i + 5 + ln],
@@ -1272,8 +1325,7 @@ def main():
     st_xl = sellers_tables(build_tables(
         build_pattern_set(xl_pats, rev_comp=True), db, wc=False,
         textn=False)).to(dev)
-    # and of 7,200 to 7,600 bases: past 32 threads' shared memory, the
-    # lower cells of each column in device scratch
+    # and of 7,200 to 7,600 bases: about 232 words each
     xxl_pats = [edit(kr, xl_text[500_000 * i + 9 : 500_000 * i + 9 + ln],
                      ("sub", "ins")[: i % 2])
                 for i, ln in enumerate(kr.integers(7200, 7601, size=2))]
@@ -1282,11 +1334,10 @@ def main():
         textn=False)).to(dev)
     xl_dev = torch.from_numpy(codes[:xl_n].copy()).to(dev)
     kcases += [
-        (f"P={st_xl.P} Lmax={st_xl.Lmax} k=2 (64 threads a block)",
+        (f"P={st_xl.P} Lmax={st_xl.Lmax} k=2",
          "sellers_scan", xl_dev, xl_n, st_xl, EOS, 2, True, 1 << 20),
-        (f"P={st_xxl.P} Lmax={st_xxl.Lmax} k=2 (columns tiled into device "
-         "scratch)", "sellers_scan", xl_dev[: 1 << 20], 1 << 20, st_xxl, EOS,
-         2, True, 1 << 20)]
+        (f"P={st_xxl.P} Lmax={st_xxl.Lmax} k=2", "sellers_scan",
+         xl_dev[: 1 << 20], 1 << 20, st_xxl, EOS, 2, True, 1 << 20)]
     kedit_err = check_kedit(kcases)
     xl_ms = cuda_ms(lambda: sellers_scan(xl_dev, xl_n, st_xl, EOS, 2, True,
                                          1 << 20), reps=5)
@@ -1296,8 +1347,24 @@ def main():
                                           True, 1 << 20), reps=3)
     log(f"sellers_scan at n=2^21, P={st_xl.P}, Lmax={st_xl.Lmax}, k=2 on "
         f"{smi}: kernel {xl_ms:.4f} ms, plain {xl_plain:.4f} ms (CUDA "
-        f"events); at n=2^20, P={st_xxl.P}, Lmax={st_xxl.Lmax} (tiled "
-        f"columns): kernel {xxl_ms:.4f} ms")
+        f"events); at n=2^20, P={st_xxl.P}, Lmax={st_xxl.Lmax}: kernel "
+        f"{xxl_ms:.4f} ms")
+    if "sellers" in parents:
+        for label, cd, nn, st_, reps in (
+                (f"n=2^21, P={st_xl.P}, Lmax={st_xl.Lmax}", xl_dev, xl_n,
+                 st_xl, 3),
+                (f"n=2^20, P={st_xxl.P}, Lmax={st_xxl.Lmax}", xl_dev,
+                 1 << 20, st_xxl, 2)):
+            want = sellers_scan(cd, nn, st_, EOS, 2, True, 1 << 20)
+            if row_set(parents["sellers"](cd, nn, st_, EOS, 2, True,
+                                          1 << 20), 1 << 20, 3) \
+                    != row_set(want, 1 << 20, 3):
+                raise AssertionError(f"parent sellers differs at {label}")
+            beside_parent(
+                f"sellers_scan at {label}, k=2 (equal triples)",
+                lambda: sellers_scan(cd, nn, st_, EOS, 2, True, 1 << 20),
+                lambda: parents["sellers"](cd, nn, st_, EOS, 2, True,
+                                           1 << 20), reps, smi)
     del kdev, xl_dev
 
     # 8. the k = 2 main path: the filter engine (Myers route) at 2^28
@@ -1461,38 +1528,58 @@ def main():
     log(f"sellers_scan at n=2^26, P=48, Lmax={st2.Lmax}, k=2 on {smi}: "
         f"kernel {sel_ms:.4f} ms, plain {sel_plain:.4f} ms (CUDA events; "
         f"equal; {sel_hits_n} triples)")
-    if parent_sellers is not None:
-        segc = sellers_segc(SELLERS_N, st2.P, st2.Lmax + 2)
-
-        def run_parent():
-            return parent_sellers(sl_dev, SELLERS_N, st2, EOS, 2, True,
-                                  sel_cap, segc)
-
-        slib = build.library("sellers")
-
-        def run_new():
-            # the same host work as the parent's wrapper: one ctypes call
-            out = torch.zeros(1 + 3 * sel_cap, dtype=torch.int32, device=dev)
-            rc = slib.sat_sellers_scan(
-                sl_dev.data_ptr(), SELLERS_N, st2.acc.data_ptr(),
-                st2.lens.data_ptr(), st2.P, st2.Lmax, st2.aw, st2.alpha, EOS,
-                2, 1, segc, st2.Lmax + 2, out.data_ptr(), sel_cap, None, 0,
-                torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"sellers: cudaError_t {rc}")
-            return out
-
-        if row_set(run_parent(), sel_cap, 3) != row_set(sel_row, sel_cap, 3):
+    if "sellers" in parents:
+        if row_set(parents["sellers"](sl_dev, SELLERS_N, st2, EOS, 2, True,
+                                      sel_cap),
+                   sel_cap, 3) != row_set(sel_row, sel_cap, 3):
             raise AssertionError("parent sellers kernel differs at 2^26")
-        p1 = cuda_ms(run_parent, reps=5)
-        n1 = cuda_ms(run_new, reps=5)
-        n2 = cuda_ms(run_new, reps=5)
-        p2 = cuda_ms(run_parent, reps=5)
-        log(f"sellers_scan at n=2^26, P=48, Lmax={st2.Lmax}, k=2 on {smi}: "
-            f"this kernel {n1:.4f}, {n2:.4f} ms; older kernel "
-            f"{p1:.4f}, {p2:.4f} ms (CUDA events, median; parent, new, "
-            f"new, parent; both launched by one ctypes call; equal "
-            f"triples)")
+        sel_ms, _old = beside_parent(
+            f"sellers_scan at n=2^26, P=48, Lmax={st2.Lmax}, k=2 (equal "
+            f"triples)",
+            lambda: sellers_scan(sl_dev, SELLERS_N, st2, EOS, 2, True,
+                                 sel_cap),
+            lambda: parents["sellers"](sl_dev, SELLERS_N, st2, EOS, 2, True,
+                                       sel_cap), 5, smi)
+    # without indels: the counter form, on its own line
+    noi_row = sellers_scan(sl_dev, SELLERS_N, st2, EOS, 2, False, sel_cap)
+    noi_ms = cuda_ms(lambda: sellers_scan(sl_dev, SELLERS_N, st2, EOS, 2,
+                                          False, sel_cap), reps=5)
+    line = (f"sellers_scan without indels at n=2^26, P=48, k=2 on {smi}: "
+            f"kernel {noi_ms:.4f} ms (CUDA events, median; "
+            f"{int(noi_row[0])} triples)")
+    if "sellers" in parents:
+        old_row = parents["sellers"](sl_dev, SELLERS_N, st2, EOS, 2, False,
+                                     sel_cap)
+        if row_set(old_row, sel_cap, 3) != row_set(noi_row, sel_cap, 3):
+            raise AssertionError("parent sellers kernel differs without "
+                                 "indels at 2^26")
+        old_ms = cuda_ms(lambda: parents["sellers"](
+            sl_dev, SELLERS_N, st2, EOS, 2, False, sel_cap), reps=5)
+        line += f"; older kernel {old_ms:.4f} ms, equal triples"
+    log(line)
+    # the route end to end: engine hits per 2^26 scan with the host tail
+    try:
+        list(ml.engine_hits_stream(2))  # starts the tail processes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs = list(ml.engine_hits_stream(5))
+        s_sel = time.perf_counter() - t0
+    finally:
+        ml.close()
+    if runs != [gotl] * 5:
+        raise AssertionError("Sellers route engine_hits_stream changed its "
+                             "hits")
+    log(f"Sellers route engine_hits_stream, n=2^26 resident, P=48 on {smi}: "
+        f"{s_sel / 5:.6f} s per run, {5 * SELLERS_N / s_sel / 1e9:.3f} "
+        f"Gbases/s (host clock, 5 runs, host tail in worker processes)")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        list(ml._filter_emit(dends, dpids))
+    log(f"Sellers route host tail (clusters + native verify) of "
+        f"{len(dends)} candidates: "
+        f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms per run")
+    profile("Sellers route, engine_hits, n=2^26 resident, P=48",
+            lambda: list(ml.engine_hits()), 3)
     del sl_dev, ml
 
     # 10. the slot kernels against plain, and the pattern-blocked rung
@@ -1654,6 +1741,17 @@ def main():
     mt50 = xsc._mer_dev()
     cap50 = xsc._slot_cap_for(MAIN_N)
     x_ms = cuda_ms(lambda: scan_slots(main_dev, MAIN_N, mt50, cap50), reps=10)
+    if "seed_slots" in parents:
+        pc, pk = row_keys(parents["seed_slots"](main_dev, MAIN_N, mt50,
+                                                cap50), cap50)
+        nc, nk = row_keys(scan_slots(main_dev, MAIN_N, mt50, cap50), cap50)
+        if pc != nc or not np.array_equal(pk, nk):
+            raise AssertionError("parent seed_slots differs on the 20-mers")
+        x_ms, _old = beside_parent(
+            "scan_slots at n=2^28, 50000 20-mers (equal slots)",
+            lambda: scan_slots(main_dev, MAIN_N, mt50, cap50),
+            lambda: parents["seed_slots"](main_dev, MAIN_N, mt50, cap50), 10,
+            smi)
     x_ref, x_plain = timed(lambda: scan_slots_ref(main_dev, MAIN_N, mt50,
                                                   cap50))
     slots_err = max(slots_err, check_slots(
@@ -1753,6 +1851,25 @@ def main():
                    reps=10)
     g_ms = cuda_ms(lambda: gate_slots(main_dev, MAIN_N, xslots, mt_x.lengths,
                                       gt_x, True, surv_cap), reps=10)
+    if "seed_slots" in parents:
+        old_slots = parents["seed_slots"](main_dev, MAIN_N, mt_x, slot_cap)
+        pc, pk = row_keys(old_slots, slot_cap)
+        nc, nk = row_keys(xslots, slot_cap)
+        if pc != nc or not np.array_equal(pk, nk):
+            raise AssertionError("parent seed_slots differs at 2^28")
+        # the same slots in the older kernel's order, through gate_slots
+        g_old = cuda_ms(lambda: gate_slots(main_dev, MAIN_N, old_slots,
+                                           mt_x.lengths, gt_x, True,
+                                           surv_cap), reps=10)
+        log(f"gate_slots over the older census's slot order on {smi}: "
+            f"{g_old:.4f} ms; over this census's order {g_ms:.4f} ms (CUDA "
+            f"events, median)")
+        del old_slots
+        s_ms, _old = beside_parent(
+            "scan_slots at n=2^28, 100000 half seeds (equal slots)",
+            lambda: scan_slots(main_dev, MAIN_N, mt_x, slot_cap),
+            lambda: parents["seed_slots"](main_dev, MAIN_N, mt_x, slot_cap),
+            10, smi)
     s_ref, s_plain = timed(lambda: scan_slots_ref(main_dev, MAIN_N, mt_x,
                                                   slot_cap))
     g_ref, g_plain = timed(lambda: gate_slots_ref(

@@ -118,6 +118,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, i64, i32,       # codes, n, alpha
             vp, i32, i32,       # cls, ncls, Lmax
             vp, vp, vp, vp,     # keys, head, enext, epid
+            vp, i32,            # presence filter, its bits (log2)
             vp, i64,            # out, cap
             vp,                 # stream
         ]
@@ -143,17 +144,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp,                 # stream
         ]
     elif name == "sellers":
-        lib.sat_sellers_scratch.restype = i64
-        lib.sat_sellers_scratch.argtypes = [
-            i64, i32, i32, i32, i32,  # n, P, Lmax, aw, segc
+        lib.sat_sellers_plan.restype = i32
+        lib.sat_sellers_plan.argtypes = [
+            i64, i32, i32, i32,  # n, P, Lmax, alpha
+            i32, i32, i32,      # k, indels, segc requested
+            i64, ctypes.POINTER(ctypes.c_int64),  # scratch max, plan [3]
         ]
         lib.sat_sellers_scan.restype = i32
         lib.sat_sellers_scan.argtypes = [
             vp, i64,            # codes, n
-            vp, vp,             # acc, lens
-            i32, i32, i32, i32,  # P, Lmax, aw, alpha
+            vp, vp,             # peq, lens
+            i32, i32, i32,      # P, Lmax, alpha
             i32, i32, i32,      # eos, k, indels
-            i32, i32,           # segc, halo
+            i64, i64,           # segc, halo
             vp, i64,            # out, cap
             vp, i64,            # scratch, its bytes
             vp,                 # stream

@@ -1,4 +1,4 @@
-"""The Sellers row-DP k-edit scan of the filter engine.
+"""The Sellers k-edit scan of the filter engine.
 
 Counterpart of ``sequence_alignment_tools_tpu/ops/sellers.py``'s
 ``_sellers_kernel`` + ``pallas_sellers_scan`` (and of the host rescan
@@ -14,24 +14,27 @@ capped at k + 1, with no error move on an EOS character and an insertion
 chain of t characters only over t non-EOS characters.  Without indels
 only substitutions count.
 
-:func:`sellers_scan` launches ``csrc/sellers.cu`` on a CUDA tensor and
-runs :func:`sellers_ref`, the row DP of ``_sellers_block`` in plain
-PyTorch, on a CPU tensor.  It serves the pattern sets the Myers kernel
-does not take: a pattern longer than 31, more words than the Myers kernel
-keeps in registers, a pattern of length <= k, or no indels.
+:func:`sellers_scan` launches ``csrc/sellers.cu`` (a block bit-parallel
+scan: Myers' word recurrence with indels, bit-sliced mismatch counters
+without) on a CUDA tensor and runs :func:`sellers_ref`, the row DP of
+``_sellers_block`` in plain PyTorch, on a CPU tensor.  It serves the
+pattern sets the Myers kernel does not take: a pattern longer than 31,
+more words than the Myers kernel keeps in registers, a pattern of length
+<= k, or no indels.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-# the kernel keeps each DP cell in one byte, capped at k + 1
+# the kernel's counters without indels hold k + 1 in at most 8 bit planes
 MAX_K = 254
-# the most device scratch one launch takes for the columns of long
-# patterns; past it the segments grow (fewer threads, fewer columns)
+# the most device scratch one launch takes for the words of long patterns;
+# past it the segments grow (fewer threads)
 _SCRATCH_MAX = 1 << 30
 
 
@@ -41,11 +44,22 @@ class SellersTables:
 
     ``acc``: [P, Lmax, aw] int32; bit ``c & 31`` of word ``c >> 5`` is set
     when position j of pattern p accepts text code c.  ``lens``: [P]
-    int32.  ``alpha``: the text alphabet size."""
+    int32.  ``alpha``: the text alphabet size.  ``peq``: the kernel's
+    accept words, [P, ceil(Lmax / 32), alpha + 1] int32 (bit i of word b
+    at code c set when position 32 b + i of pattern p accepts c; column
+    ``alpha`` stands for every code past the alphabet and is zero), built
+    from ``acc`` on the host when not given."""
 
     acc: torch.Tensor
     lens: torch.Tensor
     alpha: int
+    peq: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.peq is None:
+            object.__setattr__(self, "peq", torch.from_numpy(peq_words(
+                self.acc.cpu().numpy(), self.lens.cpu().numpy(),
+                self.alpha)).to(self.acc.device))
 
     @property
     def P(self) -> int:
@@ -61,7 +75,25 @@ class SellersTables:
 
     def to(self, device) -> SellersTables:
         return SellersTables(self.acc.to(device), self.lens.to(device),
-                             self.alpha)
+                             self.alpha, self.peq.to(device))
+
+
+def peq_words(acc: np.ndarray, lens: np.ndarray, alpha: int) -> np.ndarray:
+    """The block bit-parallel kernel's accept words of ``acc`` [P, Lmax,
+    aw] (see :class:`SellersTables`): [P, ceil(Lmax / 32), alpha + 1]
+    int32, rows past each pattern's length zero."""
+    acc = np.asarray(acc).view(np.uint32)
+    P, Lmax, _aw = acc.shape
+    W = -(-Lmax // 32)
+    live = np.arange(W * 32)[None, :] < np.asarray(lens)[:, None]  # [P, 32W]
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    peq = np.zeros((P, W, alpha + 1), np.uint64)
+    for c in range(alpha):
+        bits = np.zeros((P, W * 32), np.uint64)
+        bits[:, :Lmax] = (acc[:, :, c >> 5] >> np.uint32(c & 31)) & 1
+        bits[~live] = 0
+        peq[:, :, c] = (bits.reshape(P, W, 32) * weights).sum(axis=2)
+    return peq.astype(np.uint32).view(np.int32)
 
 
 def sellers_tables(tables) -> SellersTables:
@@ -76,12 +108,6 @@ def sellers_tables(tables) -> SellersTables:
                          torch.from_numpy(
                              np.asarray(tables.lengths, np.int32).copy()),
                          alpha)
-
-
-def sellers_segc(n: int, P: int, halo: int) -> int:
-    """Text positions per segment: about 2^18 (segment, pattern) threads
-    for a large scan, at least four halos each and at most 8192."""
-    return int(min(max(n * P >> 18, 4 * halo, 64), 8192))
 
 
 def _sellers_rows(c: torch.Tensor, st: SellersTables, eos: int, k: int,
@@ -163,12 +189,11 @@ def sellers_ref(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
 
 
 def kernel_takes(st: SellersTables, k: int) -> bool:
-    """Whether ``csrc/sellers.cu`` takes this pattern set and k: byte
-    cells (k <= 254), a grid row per pattern (P <= 65,535) and patterns of
-    at least one position.  Any Lmax: the threads per block shrink (128,
-    64, 32) to keep the columns in shared memory, and past that their
-    lower cells live in device scratch."""
-    return (0 <= k <= MAX_K and 1 <= st.P <= 65535
+    """Whether ``csrc/sellers.cu`` takes this pattern set and k: k <= 254,
+    a grid row per pattern (P <= 65,535), patterns of at least one
+    position and alphabets of at most 256 codes.  Any Lmax: the words
+    past the first live in device scratch."""
+    return (0 <= k <= MAX_K and 1 <= st.P <= 65535 and st.alpha <= 256
             and bool((st.lens >= 1).all()))
 
 
@@ -180,11 +205,14 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
     dist (cap)]``, triples in no order.
 
     ``codes`` uint8 [>= n]; ``st`` a :class:`SellersTables` on the same
-    device.  On a CUDA tensor this launches ``csrc/sellers.cu`` on the
-    current stream (with a device scratch buffer for the DP columns when
-    they do not fit shared memory, at most ``_SCRATCH_MAX`` bytes) and
-    counts the launch in ``sellers_scan.launches``; on a CPU tensor it is
-    :func:`sellers_ref`.  Nothing here waits for the device."""
+    device; ``segc`` the text positions per thread (rounded up to 32;
+    None: the kernel sizes the segments to fill whole waves of the card).
+    On a CUDA tensor this launches ``csrc/sellers.cu`` on the current
+    stream (with a device scratch buffer for the words past each
+    pattern's first, at most ``_SCRATCH_MAX`` bytes when the segments can
+    grow) and counts the launch in ``sellers_scan.launches``; on a CPU
+    tensor it is :func:`sellers_ref`.  Nothing here waits for the
+    device."""
     if codes.device.type == "cpu":
         return sellers_ref(codes, n, st, eos, k, indels, cap)
     if codes.device.type != "cuda":
@@ -194,7 +222,7 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
         raise ValueError(f"sellers_scan: codes must be contiguous uint8 "
                          f"[>= n], got {codes.dtype} {tuple(codes.shape)}, "
                          f"n {n}")
-    for name, t in (("acc", st.acc), ("lens", st.lens)):
+    for name, t in (("peq", st.peq), ("lens", st.lens)):
         if t.device != codes.device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError(f"sellers_scan: {name} must be contiguous "
@@ -207,19 +235,20 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
     from . import build
 
     lib = build.library("sellers")
-    halo = st.Lmax + k
-    segc = segc or sellers_segc(n, st.P, halo)
-    while (lib.sat_sellers_scratch(n, st.P, st.Lmax, st.aw, segc)
-           > _SCRATCH_MAX and segc < n):
-        segc *= 2
-    nscratch = lib.sat_sellers_scratch(n, st.P, st.Lmax, st.aw, segc)
-    scratch = torch.empty(nscratch, dtype=torch.uint8, device=codes.device)
-    out = torch.zeros(1 + 3 * cap, dtype=torch.int32, device=codes.device)
+    plan = (ctypes.c_int64 * 3)()
     with torch.cuda.device(codes.device):
+        rc = lib.sat_sellers_plan(n, st.P, st.Lmax, st.alpha, k, int(indels),
+                                  segc or 0, _SCRATCH_MAX, plan)
+        if rc != 0:
+            raise RuntimeError(f"sellers_scan plan failed: cudaError_t {rc}")
+        segc, halo, nscratch = plan
+        scratch = torch.empty(nscratch, dtype=torch.uint8,
+                              device=codes.device)
+        out = torch.zeros(1 + 3 * cap, dtype=torch.int32, device=codes.device)
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.sat_sellers_scan(
-            codes.data_ptr(), n, st.acc.data_ptr(), st.lens.data_ptr(),
-            st.P, st.Lmax, st.aw, st.alpha, eos, k, int(indels), segc, halo,
+            codes.data_ptr(), n, st.peq.data_ptr(), st.lens.data_ptr(),
+            st.P, st.Lmax, st.alpha, eos, k, int(indels), segc, halo,
             out.data_ptr(), cap, scratch.data_ptr() if nscratch else None,
             nscratch, stream)
     if rc != 0:

@@ -6,11 +6,12 @@ Counterparts of ``pallas_scan_slots`` and ``pallas_gate_slots`` in
 outputs where the scanner consumes them, not to the TPU's slot layout:
 
 - :func:`scan_slots` finds every exact hit of a literal seed set of any
-  size: the device census.  A window start costs one base-alpha code and
-  one hash probe per distinct seed length (:class:`MerTables`), whatever
-  the number of seeds.  On a CUDA tensor it launches the hand-written
-  kernel ``csrc/seed_slots.cu``; on a CPU tensor it runs
-  :func:`scan_slots_ref`, the plain PyTorch version.
+  size: the device census.  A window start costs one rolled base-alpha
+  code per distinct seed length, a test of a presence filter and, where
+  that passes, one hash probe (:class:`MerTables`), whatever the number
+  of seeds.  On a CUDA tensor it launches the hand-written kernel
+  ``csrc/seed_slots.cu``; on a CPU tensor it runs :func:`scan_slots_ref`,
+  the plain PyTorch version.
 - :func:`gate_slots` keeps the slots whose extension gate passes
   (``csrc/gate_slots.cu``; :func:`gate_slots_ref` on a CPU tensor) and
   returns the row :func:`.seed_gate.seed_gate` returns.
@@ -33,6 +34,28 @@ from .seed_gate import MAX_BAND
 # class table in shared memory)
 MAX_CLASSES = 64
 _REF_CHUNK = 1 << 22
+# the census tables' hash multiplier (conv_scan.py::_mer_tables)
+GOLD = 0x9E3779B97F4A7C15
+# the presence filter: about 16 bits a key, 2^10 to 2^20 bits (at most
+# 128 KB of the kernel's shared memory)
+_FILTER_BITS = (10, 20)
+
+
+def presence_filter(keys: np.ndarray) -> tuple[np.ndarray, int]:
+    """The census kernel's presence filter of the table keys ``keys``
+    (uint64 codes): ``(words, fbits)``, ``words`` int32 [2^fbits / 32]
+    with bits ``h >> (64 - fbits)`` and ``(h >> (64 - 2 fbits)) mod
+    2^fbits`` set for ``h = key * GOLD mod 2^64`` of every key, so no key
+    is ever filtered out."""
+    keys = np.asarray(keys, np.uint64)
+    fbits = int(np.clip(int(16 * len(keys)).bit_length(), *_FILTER_BITS))
+    h = keys * np.uint64(GOLD)
+    bits = np.zeros(1 << fbits, bool)
+    bits[(h >> np.uint64(64 - fbits)).astype(np.int64)] = True
+    bits[((h >> np.uint64(64 - 2 * fbits))
+          & np.uint64((1 << fbits) - 1)).astype(np.int64)] = True
+    words = np.packbits(bits, bitorder="little").view("<u4")
+    return words.astype(np.uint32).view(np.int32), fbits
 
 
 class MerTables:
@@ -50,6 +73,8 @@ class MerTables:
     - ``keys`` [sum of sizes] int64 (the uint64 bit patterns), ``head``
       [same] int32, ``enext`` [P] int32, ``epid`` [P] int32;
     - ``lengths`` [P] int32, the seed lengths by seed id;
+    - ``filt`` [2^fbits / 32] int32, the kernel's presence filter of every
+      key (:func:`presence_filter`), and ``fbits``;
     - for the plain version, per class the sorted distinct codes
       ``ukeys``, their chain bounds ``ufirst`` into ``spid``, the seed ids
       sorted by (code, id).
@@ -90,6 +115,9 @@ class MerTables:
         self.enext = torch.from_numpy(np.concatenate(enext).astype(np.int32))
         self.epid = torch.from_numpy(np.concatenate(epid).astype(np.int32))
         self.lengths = torch.from_numpy(np.asarray(lengths, np.int32).copy())
+        keys_u = self.keys.numpy().view(np.uint64)
+        filt, self.fbits = presence_filter(keys_u[keys_u != ~np.uint64(0)])
+        self.filt = torch.from_numpy(filt)
         self.plain = plain
 
     @property
@@ -100,7 +128,8 @@ class MerTables:
         """A copy whose tensors lie on ``device``."""
         out = object.__new__(MerTables)
         out.__dict__.update(self.__dict__)
-        for name in ("cls", "keys", "head", "enext", "epid", "lengths"):
+        for name in ("cls", "keys", "head", "enext", "epid", "lengths",
+                     "filt"):
             setattr(out, name, getattr(self, name).to(device))
         out.plain = [tuple(t.to(device) for t in c) for c in self.plain]
         return out
@@ -189,7 +218,8 @@ def scan_slots(codes: torch.Tensor, n: int, mt: MerTables,
     _check_common("scan_slots", codes, n, cap, mt.Lmax, {
         "codes": (codes, torch.uint8), "cls": (mt.cls, torch.int64),
         "keys": (mt.keys, torch.int64), "head": (mt.head, torch.int32),
-        "enext": (mt.enext, torch.int32), "epid": (mt.epid, torch.int32)})
+        "enext": (mt.enext, torch.int32), "epid": (mt.epid, torch.int32),
+        "filt": (mt.filt, torch.int32)})
     if mt.head.shape != mt.keys.shape or mt.enext.shape != mt.epid.shape:
         raise ValueError("scan_slots: table shapes disagree")
     from . import build
@@ -202,8 +232,8 @@ def scan_slots(codes: torch.Tensor, n: int, mt: MerTables,
         rc = lib.sat_seed_slots(
             codes.data_ptr(), n, mt.alpha, mt.cls.data_ptr(), len(mt.lens),
             mt.Lmax, mt.keys.data_ptr(), mt.head.data_ptr(),
-            mt.enext.data_ptr(), mt.epid.data_ptr(), out.data_ptr(), cap,
-            stream)
+            mt.enext.data_ptr(), mt.epid.data_ptr(), mt.filt.data_ptr(),
+            mt.fbits, out.data_ptr(), cap, stream)
     if rc != 0:
         raise RuntimeError(f"seed_slots launch failed: cudaError_t {rc}")
     scan_slots.launches += 1

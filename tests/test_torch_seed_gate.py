@@ -37,7 +37,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.seed_gate import (
 )
 from sequence_alignment_tools_tpu_torch.ops.gate import GateTables
 from sequence_alignment_tools_tpu_torch.ops.tables import device_tables
-from tests.test_torch_gate import mutate
+from test_torch_gate import mutate
 
 TABLE = b"ACGT\n"
 EOS = 4

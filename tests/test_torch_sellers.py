@@ -30,6 +30,7 @@ from sequence_alignment_tools_tpu.ops.tables import (
 from sequence_alignment_tools_tpu_torch.io.database import SeqDB
 from sequence_alignment_tools_tpu_torch.io.patterns import build_pattern_set
 from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
+    SellersTables,
     sellers_ref,
     sellers_scan,
     sellers_tables,
@@ -215,3 +216,44 @@ def test_cuda_kernel_long_patterns(k, indels, longest):
         torch.cuda.synchronize()
         assert int(got[0]) == int(want[0]) > 0
         assert triples(got) == triples(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segc", [None, 32, 4096])
+def test_cuda_block_bit_parallel_shapes(segc):
+    """The shapes of the CPU model (``tests/test_torch_sellers_bp.py``):
+    k 0 to 4 and k >= m, ragged lengths of 1 to 100, EOS-dense text,
+    IUPAC-like classes, a 41-code alphabet, with and without indels; on
+    a codes slice that is not 4-byte aligned too; and the EOS contract
+    of ACGTAC on EOS CGTAC.  Kernel == plain, triple for triple."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from test_torch_sellers_bp import SHAPES, plant, random_tables
+
+    for name, (k, indels, lens, alpha, eos_share, edits, _s, amb) in \
+            SHAPES.items():
+        rng = np.random.default_rng(sum(map(ord, name)))
+        st = random_tables(rng, lens, alpha, amb)
+        n = 30_000
+        codes = rng.integers(0, alpha - 1, size=n).astype(np.uint8)
+        plant(rng, codes, st, 200, edits)
+        codes[rng.random(n) < eos_share] = alpha - 1
+        st = st.to("cuda")
+        dev = torch.from_numpy(
+            np.concatenate([np.zeros(1, np.uint8), codes])).cuda()
+        cap = 1 << 20  # k >= m: every position hits
+        for cd in (dev[1:].clone(), dev[1:]):
+            got = sellers_scan(cd, n - 5, st, alpha - 1, k, indels, cap,
+                               segc)
+            want = sellers_ref(cd, n - 5, st, alpha - 1, k, indels, cap)
+            torch.cuda.synchronize()
+            assert int(got[0]) == int(want[0]) > 0, name
+            assert triples(got, cap) == triples(want, cap), name
+    acc = torch.tensor([[[1], [2], [4], [8], [1], [2]]], dtype=torch.int32)
+    st = SellersTables(acc, torch.tensor([6], dtype=torch.int32), 5).to(
+        "cuda")
+    for text, want in (([EOS, 1, 2, 3, 0, 1], 0), ([3, 1, 2, 3, 0, 1], 1)):
+        got = sellers_scan(torch.tensor(text, dtype=torch.uint8).cuda(), 6,
+                           st, EOS, 1, True, CAP, segc)
+        assert int(got[0]) == want
+

@@ -47,9 +47,9 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.slots import (
     slot_gated_hits,
 )
 from sequence_alignment_tools_tpu_torch.ops.gate import GateTables
-from tests.test_slots_kernel import _decode, _mk
-from tests.test_torch_gate import DIRS, PATS, mutate, seed_meta
-from tests.test_torch_seed_gate import seed_tables
+from test_slots_kernel import _decode, _mk
+from test_torch_gate import DIRS, PATS, mutate, seed_meta
+from test_torch_seed_gate import seed_tables
 
 TABLE = b"ACGT\n"
 EOS = 4
@@ -329,3 +329,30 @@ def test_cuda_kernels_match_plain(slot_db, k, indels):
             if cap == 4096:
                 assert pairs(got.cpu()) == pairs(want.cpu())
                 assert pairs(ggot.cpu()) == pairs(gwant.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_census_shapes():
+    """The rolling-code census on the card against the plain version on
+    the shapes of ``tests/test_torch_census_roll.py`` (1 to 6 length
+    classes, duplicates, a seed across an EOS, a window ending at n), at
+    a full cap, at cap 1 (the staged output's overflow) and on a codes
+    slice that is not 16-byte aligned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from test_torch_census_roll import CASES, census_case
+
+    for lengths, n in CASES:
+        codes, _seeds, mt = census_case(lengths, n)
+        mt = mt.to("cuda")
+        dev = torch.from_numpy(
+            np.concatenate([np.zeros(1, np.uint8), codes])).cuda()
+        for cd in (dev[1:].clone(), dev[1:]):
+            for m in (n, n - 7):
+                want = scan_slots_ref(cd, m, mt, 1 << 16)
+                got = scan_slots(cd, m, mt, 1 << 16)
+                one = scan_slots(cd, m, mt, 1)
+                torch.cuda.synchronize()
+                assert int(got[0]) == int(one[0]) == int(want[0]) > 0
+                assert pairs(got.cpu()) == pairs(want.cpu())
+                assert set(pairs(one.cpu())) <= set(pairs(want.cpu()))
