@@ -33,7 +33,9 @@ output:
    sets) on a 2^22 block with planted 1- and 2-edit variants, some next to
    EOS and one primer split by EOS: halves k = 1, ``-K 1`` (band 0),
    k = 2 (node 11), bases (``-3 8``), an odd length, 2048 seeds and a
-   forced overflow (cap 1); kernel and plain timed at 2^22 and 2^28;
+   forced overflow (cap 1); at 2^22 and 2^28 the kernel equal to plain,
+   kernel and plain timed, the older commit's kernel beside it when
+   ``PARENT_DIR`` holds its source;
 6. the k = 1 main path: ``PrimerMatchModel(k=1, indels=True)`` (halves)
    over the resident 2^28 database, device route against the host route
    (native shift-and seeds), every exact and 1-edit plant found, both
@@ -45,7 +47,9 @@ output:
 8. the k-edit kernels against plain at 2^22 positions, on text dense with
    EOS and planted 1- and 2-edit variants: ``myers_pairs`` against
    ``myers_pairs_ref`` (the bench primers, packed two to a word, k = 1, 2,
-   3) and ``sellers_scan`` against ``sellers_ref`` (100 patterns of 60 to
+   3; each timed, the older commit's Myers kernel beside it when
+   ``PARENT_DIR`` holds its source) and ``sellers_scan`` against
+   ``sellers_ref`` (100 patterns of 60 to
    100 bases at k = 1, 2, 4, without indels, and degenerate primers over
    an IUPAC database under ``-w``; patterns of about 3,200 and about
    7,400 bases, about 100 and 232 words, all but the first in device
@@ -55,8 +59,9 @@ output:
    filter engine, Myers route) over the resident 2^28 database, engine
    hits equal to the host route's (the native Sellers rows), every exact,
    1- and 2-edit plant found; ``engine_hits_stream`` throughput with the
-   host tail, the tail alone and a ``torch.profiler`` breakdown; then
-   ``-K 2`` (the poisoned k-mismatch scan) against the host route;
+   host tail, the tail alone and a ``torch.profiler`` breakdown; the
+   Myers kernel at 2^28 against plain (and beside the older commit's);
+   then ``-K 2`` (the poisoned k-mismatch scan) against the host route;
 10. the Sellers route: 24 primers of 32 to 40 bases with their reverse
     complements (P = 48, Lmax = 40), k = 2, over the first 2^26 positions
     with the primers planted; engine hits equal to the host route's (the
@@ -81,7 +86,9 @@ output:
     extension) against the CPU route (native census, inline gate) over a
     2^24 prefix, then over 2^28, with a ``torch.profiler`` breakdown of
     both; an older commit's census kernel timed beside this one on both
-    seed sets when ``PARENT_DIR`` holds its source;
+    seed sets, and ``gate_slots`` built over the older commit's
+    ``gate.cuh`` beside this one, when ``PARENT_DIR`` holds their
+    sources;
 13. pcr_match: ``pairs_stream`` of 10 primer pairs over the resident 2^28
     database at k = 0, equal to ``pairs``;
 14. CLI: ``-k 2 -r -c``, ``-k 2 -r``, ``-K 2 -r`` and the long primers with
@@ -329,15 +336,15 @@ def wide_db(n, seed):
     return db, pats
 
 
-# An older commit's scan filter and Sellers kernel (its scan_filter.cu,
-# sellers.cu and scan_chunk.cuh; 40b2571 below), timed beside this
-# checkout's kernels when their sources have been unpacked into this
-# git-ignored directory:
-#   mkdir -p build/parent_kernels && for f in sellers.cu seed_slots.cu \
-#     slot_out.cuh scan_chunk.cuh; do git show e27d89a:\
-#     sequence_alignment_tools_tpu_torch/ops/cuda/csrc/$f \
+# An older commit's kernels, timed beside this checkout's when their
+# sources (with the headers they include) have been unpacked into this
+# git-ignored directory, e.g. fb4b3cd's Myers, seed_gate and gate_slots:
+#   mkdir -p build/parent_kernels && for f in myers.cu seed_gate.cu \
+#     gate_slots.cu gate.cuh scan_chunk.cuh slot_out.cuh; do git show \
+#     fb4b3cd:sequence_alignment_tools_tpu_torch/ops/cuda/csrc/$f \
 #     > build/parent_kernels/$f; done
-# (add scan_filter.cu to the list to time an older filter too)
+# (e27d89a's sellers.cu, seed_slots.cu and 40b2571's scan_filter.cu, with
+# their headers, are taken the same way)
 PARENT_DIR = os.path.join("build", "parent_kernels")
 
 
@@ -345,9 +352,12 @@ def parent_kernels():
     """{name: fn} of the older commit's kernels built from ``PARENT_DIR``
     (empty for a plain checkout): ``scan_filter(codes, w, thr, n, eos)
     -> occ``, ``sellers(codes, n, st, eos, k, indels, cap) -> row`` (the
-    byte-cell row DP with its own wrapper's segments) and
-    ``seed_slots(codes, n, mt, cap) -> row``, each present when its source
-    is."""
+    byte-cell row DP with its own wrapper's segments),
+    ``seed_slots(codes, n, mt, cap) -> row``, ``myers(codes, n, mt, eos,
+    k, cap) -> row``, ``seed_gate(codes, n, dt, mb_count, mb_idx, gt,
+    eos, indels, cap) -> row`` (the lane-per-start form) and
+    ``gate_slots(codes, n, slots, lengths, gt, indels, cap) -> row``, each
+    present when its source is."""
     import ctypes
 
     import torch
@@ -359,7 +369,8 @@ def parent_kernels():
 
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     procs = {}
-    for name in ("scan_filter", "sellers", "seed_slots"):
+    for name in ("scan_filter", "sellers", "seed_slots", "myers", "seed_gate",
+                 "gate_slots"):
         src = os.path.join(PARENT_DIR, name + ".cu")
         if os.path.exists(src):
             out = os.path.abspath(os.path.join(PARENT_DIR, f"lib{name}.so"))
@@ -439,6 +450,70 @@ def parent_kernels():
             return out
 
         fns["seed_slots"] = census
+    if "myers" in libs:
+        mfn = libs["myers"].sat_myers_pairs
+        mfn.restype = i32
+        mfn.argtypes = [vp, i64, vp, ctypes.POINTER(ctypes.c_int32), i32,
+                        i32, i32, i32, i32, vp, i64, vp]
+
+        def myers(codes, n, mt, eos, k, cap):
+            from sequence_alignment_tools_tpu_torch.ops.cuda.myers import (
+                myers_segc,
+            )
+
+            halo = mt.Lmax + k
+            words = np.ascontiguousarray(mt.words_np, np.int32)
+            out = torch.zeros(1 + 2 * cap, dtype=torch.int32,
+                              device=codes.device)
+            rc = mfn(codes.data_ptr(), n, mt.eq.data_ptr(),
+                     words.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                     mt.nw, eos, k, myers_segc(n, halo), halo,
+                     out.data_ptr(), cap, stream())
+            if rc:
+                raise RuntimeError(f"parent myers: cudaError_t {rc}")
+            return out
+
+        fns["myers"] = myers
+    if "seed_gate" in libs:
+        gfn = libs["seed_gate"].sat_seed_gate
+        gfn.restype = i32
+        gfn.argtypes = [vp, i64, vp, vp, vp, i32, i32, i32, i32, vp, vp, i64,
+                        vp, vp, vp, i32, i32, i32, i32, vp, i64, vp]
+
+        def sgate(codes, n, dt, mb_count, mb_idx, gt, eos, indels, cap):
+            Lmax, alpha, S = dt.weights16.shape
+            out = torch.zeros(1 + 2 * cap, dtype=torch.int32,
+                              device=codes.device)
+            rc = gfn(codes.data_ptr(), n, dt.weights16.data_ptr(),
+                     dt.thresholds.data_ptr(), dt.lengths.data_ptr(), Lmax,
+                     alpha, S, eos, mb_count.data_ptr(), mb_idx.data_ptr(),
+                     mb_idx.numel(), gt.bits.data_ptr(), gt.glen.data_ptr(),
+                     gt.gdir.data_ptr(), gt.Lg, gt.k, gt.band, int(indels),
+                     out.data_ptr(), cap, stream())
+            if rc:
+                raise RuntimeError(f"parent seed_gate: cudaError_t {rc}")
+            return out
+
+        fns["seed_gate"] = sgate
+    if "gate_slots" in libs:
+        sfn2 = libs["gate_slots"].sat_gate_slots
+        sfn2.restype = i32
+        sfn2.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, i32, i32, i32,
+                         i32, vp, i64, vp]
+
+        def gslots(codes, n, slots, lengths, gt, indels, cap):
+            out = torch.zeros(1 + 2 * cap, dtype=torch.int32,
+                              device=codes.device)
+            rc = sfn2(codes.data_ptr(), n, slots.data_ptr(),
+                      (slots.numel() - 1) // 2, lengths.data_ptr(),
+                      gt.bits.data_ptr(), gt.glen.data_ptr(),
+                      gt.gdir.data_ptr(), gt.Lg, gt.k, gt.band, int(indels),
+                      out.data_ptr(), cap, stream())
+            if rc:
+                raise RuntimeError(f"parent gate_slots: cudaError_t {rc}")
+            return out
+
+        fns["gate_slots"] = gslots
     return fns
 
 
@@ -916,7 +991,6 @@ def main():
     log("older kernels: " + (", ".join(sorted(parents)) + " built from "
                              + PARENT_DIR if parents else
                              "not unpacked here, no comparison"))
-
     # 2. kernel against plain at the serving block size
     db, planted, variants = make_db(MAIN_N, SEED)
     codes = db.codes
@@ -1192,23 +1266,56 @@ def main():
                              EOS)
         return compact_mask(occ, n // 32)
 
+    from sequence_alignment_tools_tpu_torch.ops.gate import GateTables
+
+    def same_survivors(a, b):
+        return a[0] == b[0] and a[1].tolist() == b[1].tolist() and \
+            a[2].tolist() == b[2].tolist()
+
+    S_h = int(dt_h.lengths.numel())
+    # a gate that passes every seed hit: the kernel then counts the hits
+    open_gate = GateTables(np.zeros((S_h, 1, gt_h.alpha), bool),
+                           np.zeros(S_h, np.int32), np.ones(S_h, np.int32),
+                           np.zeros(S_h, np.int32), 1, 1).to(dev)
     timings = {}
     for label, codes_dev, n in (("2^22", gate_dev, gate_n),
                                 ("2^28", sc._device_form(codes), MAIN_N)):
         mbc, mbi = gate_inputs(codes_dev, n)
-        g_ms = cuda_ms(lambda: seed_gate(codes_dev, n, dt_h, mbc, mbi, gt_h,
-                                         EOS, True, 1 << 16), reps=10)
+        cap_g = 1 << 16
+
+        def run_gate():
+            return seed_gate(codes_dev, n, dt_h, mbc, mbi, gt_h, EOS, True,
+                             cap_g)
+
+        want_g = survivor_set(seed_gate_ref(codes_dev, n, dt_h, mbc, mbi,
+                                            gt_h, EOS, True, cap_g), cap_g)
+        if not same_survivors(survivor_set(run_gate(), cap_g), want_g):
+            raise AssertionError(f"seed_gate differs from plain at {label}")
+        g_ms = cuda_ms(run_gate, reps=10)
+        if "seed_gate" in parents:
+            old_g = survivor_set(parents["seed_gate"](
+                codes_dev, n, dt_h, mbc, mbi, gt_h, EOS, True, cap_g), cap_g)
+            if not same_survivors(old_g, want_g):
+                raise AssertionError(f"parent seed_gate differs at {label}")
+            g_ms, _old = beside_parent(
+                f"seed_gate at n={label}, halves k=1 (40 seeds; equal "
+                f"survivors)", run_gate,
+                lambda: parents["seed_gate"](codes_dev, n, dt_h, mbc, mbi,
+                                             gt_h, EOS, True, cap_g), 10,
+                smi)
         r_ms = cuda_ms(lambda: seed_gate_ref(codes_dev, n, dt_h, mbc, mbi,
-                                             gt_h, EOS, True, 1 << 16),
+                                             gt_h, EOS, True, cap_g),
                        reps=3)
         row = gated_hits(codes_dev, n, dt_h, gt_h, EOS, True, n // 32,
-                         1 << 16)
+                         cap_g)
+        n_hits = int(seed_gate(codes_dev, n, dt_h, mbc, mbi, open_gate, EOS,
+                               True, 1)[0])
         timings[label] = (g_ms, r_ms)
-        gate_counts = (int(row[0]), int(row[1]))
+        gate_counts = (int(row[0]), int(row[1]), n_hits)
         log(f"seed_gate at n={label}, halves k=1 (40 seeds) on {smi}: "
             f"kernel {g_ms:.4f} ms, plain {r_ms:.4f} ms (CUDA events, "
             f"median); {int(row[0])} of {n // 32} microblocks are "
-            f"candidates, {int(row[1])} gate survivors")
+            f"candidates, {n_hits} seed hits, {int(row[1])} gate survivors")
     del gate_dev
 
     # 6. the k = 1 main path: halves engine over the resident 2^28 database
@@ -1339,6 +1446,23 @@ def main():
         (f"P={st_xxl.P} Lmax={st_xxl.Lmax} k=2", "sellers_scan",
          xl_dev[: 1 << 20], 1 << 20, st_xxl, EOS, 2, True, 1 << 20)]
     kedit_err = check_kedit(kcases)
+    for k in (1, 2, 3):
+        my22 = cuda_ms(lambda: myers_pairs(kdev, KEDIT_N, mt_b, EOS, k,
+                                           1 << 20), reps=10)
+        if "myers" in parents:
+            if row_set(parents["myers"](kdev, KEDIT_N, mt_b, EOS, k,
+                                        1 << 20), 1 << 20, 2) != row_set(
+                    myers_pairs(kdev, KEDIT_N, mt_b, EOS, k, 1 << 20),
+                    1 << 20, 2):
+                raise AssertionError(f"parent myers differs at 2^22, k={k}")
+            my22, _old = beside_parent(
+                f"myers_pairs at n=2^22 (EOS-dense), P=20, k={k} (equal "
+                f"pairs)",
+                lambda: myers_pairs(kdev, KEDIT_N, mt_b, EOS, k, 1 << 20),
+                lambda: parents["myers"](kdev, KEDIT_N, mt_b, EOS, k,
+                                         1 << 20), 10, smi)
+        log(f"myers_pairs at n=2^22 (EOS-dense), P=20 ({mt_b.nw} words), "
+            f"k={k} on {smi}: kernel {my22:.4f} ms (CUDA events, median)")
     xl_ms = cuda_ms(lambda: sellers_scan(xl_dev, xl_n, st_xl, EOS, 2, True,
                                          1 << 20), reps=5)
     _r, xl_plain = timed(lambda: sellers_ref(xl_dev, xl_n, st_xl, EOS, 2,
@@ -1433,6 +1557,16 @@ def main():
         raise AssertionError("myers_pairs differs from plain at 2^28")
     my_ms = cuda_ms(lambda: myers_pairs(main_dev, MAIN_N, mt2, EOS, 2,
                                         my_cap), reps=10)
+    if "myers" in parents:
+        if row_set(parents["myers"](main_dev, MAIN_N, mt2, EOS, 2, my_cap),
+                   my_cap, 2) != row_set(my_row, my_cap, 2):
+            raise AssertionError("parent myers differs at 2^28")
+        my_ms, _old = beside_parent(
+            f"myers_pairs at n=2^28, P=20 ({mt2.nw} words), k=2 (equal "
+            f"pairs)",
+            lambda: myers_pairs(main_dev, MAIN_N, mt2, EOS, 2, my_cap),
+            lambda: parents["myers"](main_dev, MAIN_N, mt2, EOS, 2, my_cap),
+            10, smi)
     my_pairs_n = int(my_row[0])
     log(f"myers_pairs at n=2^28, P=20 ({mt2.nw} words), k=2 on {smi}: "
         f"kernel {my_ms:.4f} ms, plain {my_plain:.4f} ms (CUDA events; "
@@ -1851,6 +1985,21 @@ def main():
                    reps=10)
     g_ms = cuda_ms(lambda: gate_slots(main_dev, MAIN_N, xslots, mt_x.lengths,
                                       gt_x, True, surv_cap), reps=10)
+    if "gate_slots" in parents:
+        # the same kernel source over the older gate.cuh
+        if check_slots("gate_slots of the older gate.cuh, n=2^28",
+                       parents["gate_slots"](main_dev, MAIN_N, xslots,
+                                             mt_x.lengths, gt_x, True,
+                                             surv_cap),
+                       xsurv, surv_cap, surv_cap):
+            raise AssertionError("parent gate_slots differs at 2^28")
+        g_ms, _old = beside_parent(
+            "gate_slots at n=2^28, 100000 half seeds, k=1 (equal survivors)",
+            lambda: gate_slots(main_dev, MAIN_N, xslots, mt_x.lengths, gt_x,
+                               True, surv_cap),
+            lambda: parents["gate_slots"](main_dev, MAIN_N, xslots,
+                                          mt_x.lengths, gt_x, True,
+                                          surv_cap), 10, smi)
     if "seed_slots" in parents:
         old_slots = parents["seed_slots"](main_dev, MAIN_N, mt_x, slot_cap)
         pc, pk = row_keys(old_slots, slot_cap)
@@ -2031,12 +2180,23 @@ def main():
     occ_bound = bound(BLOCK_N + nmb24,
                       nmb24 * filter_tables(dt0.weights16, dt0.thresholds).R
                       + nmb24 * 2 * len(PATS))
-    cand28, surv28 = gate_counts
+    cand28, surv28, hits28 = gate_counts
     lmax_s = int(dt_h.weights16.shape[0])
-    gate_bound = bound(cand28 * (32 + lmax_s - 1 + 8) + 8 * surv28,
-                       cand28 * 32 * int(dt_h.lengths.numel()) * 2
-                       + surv28 * gt_h.Lg * (2 * gt_h.band + 1) * 4)
-    # Myers: about 17 word operations per character and word
+    ft_h = filter_tables(dt_h.weights16, dt_h.thresholds)
+    # seed_gate: each candidate microblock's index and text in, 8 bytes per
+    # survivor out; per candidate microblock one ballot per mask row and
+    # 32-position word of its text and at least one word step (a funnel
+    # shift and an AND, for 32 starts) per seed; per seed hit at least
+    # k + 1 gate rows, a survivor all Lg, of 2 band + 1 cells of about 4
+    # operations
+    gate_cells = 2 * gt_h.band + 1
+    gate_bound = bound(
+        cand28 * (8 + 32 + lmax_s - 1) + 8 * surv28,
+        cand28 * (ft_h.R * -(-(32 + lmax_s - 1) // 32) + 2 * ft_h.P)
+        + ((hits28 - surv28) * (gt_h.k + 1) + surv28 * gt_h.Lg)
+        * gate_cells * 4)
+    # Myers: 17 operations per word and character, the recurrence as
+    # myers.cu's header writes it (15 word operations, 2 for the score)
     my_bound = bound(MAIN_N + 8 * my_pairs_n, 17 * MAIN_N * mt2.nw)
     # Sellers: Ukkonen's cutoff visits at least k + 1 cells per character
     # and pattern, about 5 operations each

@@ -102,10 +102,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "seed_gate":
         lib.sat_seed_gate.restype = i32
         lib.sat_seed_gate.argtypes = [
-            vp, i64,            # codes, n
-            vp, vp, vp,         # w, thr, lengths
-            i32, i32, i32,      # Lmax, alpha, P
-            i32,                # eos
+            vp, i64, i32,       # codes, n, eos
+            vp, i32,            # bits, R
+            vp, vp, i32, i32,   # ent, pat, P, J
+            vp, vp, i32,        # cls_off, cls_rows, direct
+            vp, i32,            # lengths, Lmax
             vp, vp, i64,        # mb_count, mb_idx, cap_mb
             vp, vp, vp,         # gate bits, glen, gdir
             i32, i32, i32, i32,  # Lg, k, band, indels

@@ -1,7 +1,9 @@
 // The banded extension gate of the pigeonhole (k > 0) engines, shared by
 // seed_gate.cu (seed enumeration and gate, fused) and gate_slots.cu (gate
 // over a slot list): the one gate recurrence of the kernels, equal to
-// ops/gate.py::gate_ok_ref, edge rules included.
+// ops/gate.py::gate_ok_ref, edge rules included.  The window's text comes
+// through a reader: device memory (GlobalText), or text a kernel staged
+// in shared memory.
 
 #pragma once
 
@@ -22,14 +24,24 @@ struct Gate {
   bool indels, shared;
 };
 
+// Text code at idx from device memory, the sentinel outside [0, n).
+struct GlobalText {
+  const uint8_t* __restrict__ codes;
+  int64_t n;
+  __device__ __forceinline__ int operator()(int64_t idx) const {
+    return (idx >= 0 && idx < n) ? __ldg(codes + idx) : kSentinel;
+  }
+};
+
 // The banded anchored edit distance of seed s's extension pattern at
 // `anchor` is at most k.  D[d] holds dp[p][p + d - band], saturated at
 // INF = k + 1; a row is updated in place in ascending d, since cell d
 // reads the old cells d and d + 1 and the new cell d - 1.  Window slot j
 // reads anchor + j (gdir > 0) or anchor + gdir - j; text outside [0, n)
-// reads the sentinel.
-__device__ inline bool gate_ok(const uint8_t* __restrict__ codes, int64_t n,
-                               int64_t anchor, int s, const Gate& g) {
+// reads the sentinel (`text` returns it).
+template <class Text>
+__device__ inline bool gate_ok(const Text& text, int64_t anchor, int s,
+                               const Gate& g) {
   const int glen = __ldg(g.glen + s);
   if (glen == 0) return true;
   const int gdir = __ldg(g.gdir + s);
@@ -66,8 +78,7 @@ __device__ inline bool gate_ok(const uint8_t* __restrict__ codes, int64_t n,
         } else {
           const int64_t j = tpos - 1;
           const int64_t idx = gdir > 0 ? anchor + j : anchor + gdir - j;
-          const int c =
-              (idx >= 0 && idx < n) ? __ldg(codes + idx) : kSentinel;
+          const int c = text(idx);
           const int match = c < 31 ? (acc >> c) & 1 : 0;
           v = D[d] + (match ? 0 : 1);
           if (g.indels) {
@@ -85,6 +96,11 @@ __device__ inline bool gate_ok(const uint8_t* __restrict__ codes, int64_t n,
     if (rowmin > g.k) return false;
   }
   return true;
+}
+
+__device__ inline bool gate_ok(const uint8_t* __restrict__ codes, int64_t n,
+                               int64_t anchor, int s, const Gate& g) {
+  return gate_ok(GlobalText{codes, n}, anchor, s, g);
 }
 
 }  // namespace sat

@@ -14,9 +14,9 @@
 //   - t inside a candidate microblock [32 m, 32 m + 32);
 //   - the gate DP of (anchor, s) at most k (gate.py::gate_ok_ref, edge
 //     rules included).
-// Survivors go to anchors/sids through an atomic counter, in no order;
-// *count always receives the true number, so the host retries with a
-// larger cap when it exceeds cap.
+// Survivors go to anchors/sids through a counter, in no order; *count
+// always receives the true number, so the host retries with a larger cap
+// when it exceeds cap.
 //
 // The TPU kernel reduced each window start to (sum of seed ids, count)
 // with a matmul and so could name one seed only: starts where several
@@ -24,32 +24,36 @@
 // rescan.  This kernel enumerates every seed at every start, so nothing
 // escapes.
 //
-// What bounds it on an H100: not device memory (the candidate microblocks
-// are a few percent of the text, read once) but the instructions of the
-// seed loop, S seeds x the early-exit depth per window start, and the
-// serial gate DP of each seed hit (Lg rows x (2 band + 1) cells, in
-// registers).  The design:
-//   - one warp per candidate microblock, one lane per window start; the
-//     warp's text (32 + Lmax - 1 bytes, EOS past n) sits in shared memory;
-//   - the seed weights sit in shared memory in pattern chunks, with the
-//     early exit of scan_filter.cu (scan_chunk.cuh), but every seed of
-//     every chunk is visited instead of stopping at the first hit;
-//   - each seed hit runs the diagonal-banded gate DP (gate.cuh, shared
-//     with gate_slots.cu) at once, in the registers of its lane
-//     (D[2 band + 1], band <= 8, saturated at k + 1),
-//     and stops as soon as a whole row is saturated; the extension window
-//     is read from device memory through the read-only cache;
-//   - the accept bits [S, Lg] sit in shared memory when they fit the
-//     budget, else they are read through __ldg.
-// Hits are rare (about 2.4e-3 per position for the bench's half seeds), so
-// most lanes of a warp idle while one runs its DP; a warp-cooperative DP,
-// or a second pass over a compacted hit list, is later work.
+// The first form of this kernel ran one lane per window start and
+// every seed through a dependent loop of int16 weight lookups, then the
+// gate DP of each hit in its own lane while the warp waited: bound by
+// instruction issue and by those serial DPs.  This form:
+//   - enumerates in the bit-parallel form of scan_filter.cu, over the
+//     operands of scan_kernel.py::filter_tables (accept / kill classes per
+//     seed position, jend, kp, poison; the same tables the filter launch
+//     used): a warp stages its microblocks' text once, builds one 32-bit
+//     mask per mask row and 32-position word with __ballot_sync, and a
+//     seed's 32-start hit word is the AND of its funnel-shifted class masks
+//     over its positions (a saturating bit-sliced miss counter when the
+//     seed allows misses), with an exit at 0: one word step per (seed,
+//     position) for 32 starts;
+//   - lays 8 microblocks on a warp, 4 lanes each over its seeds: within
+//     1% of one lane per microblock (every lane walking every seed, as the
+//     filter does) where candidates are many, and it fills the card where
+//     they are few (PERF.md section 6 has the layouts' times);
+//   - pushes each hit (anchor, seed) into a per-warp queue in shared
+//     memory (a ballot and a popcount prefix), and runs the gate DP
+//     (gate.cuh) 32 queued hits at a time, one per lane; the window is read
+//     from the staged text where it lies inside it (the microblock's text
+//     with a margin of Lg + band on each side), else through __ldg;
+//   - sends survivors out with warp-aggregated slots (slot_out.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "gate.cuh"
 #include "scan_chunk.cuh"
+#include "slot_out.cuh"
 
 namespace {
 
@@ -57,151 +61,438 @@ using sat::full_grid;
 using sat::Gate;
 using sat::gate_ok;
 using sat::kMaxBand;
+using sat::kSentinel;
 using sat::LaunchCache;
-using sat::per_pattern_bytes;
 using sat::round_up;
-using sat::stage_chunk;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kSmemBudget = 96 * 1024;  // leaves room for 2 blocks per SM
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNone = 0xffffffffu;  // no class: the empty set
+constexpr int kMaxWarps = 8;
+constexpr int kBitWords = 8;             // a row's bitset: 256 codes
+constexpr int kQueue = 64;               // queued hits per warp
 constexpr int kGateSmemMax = 32 * 1024;
-constexpr int kSmemMax = 232448;        // sm_90 per-block opt-in maximum
+constexpr int kSmemMax = 232448;         // sm_90 per-block opt-in maximum
+constexpr int kMarginMax = 64;           // staged text past the seeds
+constexpr uint8_t kOut = 0xff;           // a staged position outside [0, n)
+constexpr int kMb = 8;                   // microblocks per warp
 
-__global__ void __launch_bounds__(kThreads)
-seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n,
-                 const int16_t* __restrict__ w,
-                 const int32_t* __restrict__ thr,
-                 const int32_t* __restrict__ lengths, int Lmax, int alpha,
-                 int P, int eos, const int64_t* __restrict__ mb_count,
+// Per-warp shared memory, and the geometry of a launch.
+struct Geometry {
+  int Wq;       // mask words per microblock: 2 + (J - 1) / 32
+  int E;        // staged margin on each side (the gate's window), a
+                // multiple of 4
+  int hi;       // staged positions from t0 (exclusive), t0 = 32 m
+  int spanp;    // staged bytes per microblock, padded
+  int per_warp;
+  int warps;
+  int smem;
+};
+
+inline Geometry geometry(int R, int J, int Lmax, int Lg, int band,
+                         int fixed) {
+  Geometry g;
+  g.Wq = 2 + ((J > 0 ? J - 1 : 0) >> 5);
+  g.E = round_up(Lg + band < kMarginMax ? Lg + band : kMarginMax, 4);
+  const int seeds = 31 + Lmax + g.E;
+  g.hi = 32 * g.Wq > seeds ? 32 * g.Wq : seeds;
+  g.spanp = round_up(g.E + g.hi, 4);
+  g.per_warp = R * g.Wq * kMb * 4  // masks
+               + 3 * kQueue * 4   // queue: anchors, seed ids, slots
+               + kMb * 4          // t0 of each microblock
+               + kMb * g.spanp;   // text
+  int warps = (kSmemMax - fixed) / g.per_warp;
+  if (warps > kMaxWarps) warps = kMaxWarps;
+  g.warps = warps;
+  g.smem = fixed + (warps > 0 ? warps : 0) * g.per_warp;
+  return g;
+}
+
+// The verdict word of one class at seed position j for 32 starts: bit b
+// set iff text[t0 + b + j] lies in the class.  `mw` points at this lane's
+// microblock in word 0 of row 0; row r, word q lies at (r Wq + q) kMb.
+template <bool kDirect>
+__device__ __forceinline__ uint32_t class_mask(
+    uint32_t cls, int j, const uint32_t* mw, int Wq,
+    const int32_t* __restrict__ cls_off,
+    const int32_t* __restrict__ cls_rows) {
+  if (cls == kNone) return 0;
+  const int q = j >> 5;
+  const int s = j & 31;
+  if (kDirect) {
+    const uint32_t* r = mw + (static_cast<int>(cls) * Wq + q) * kMb;
+    return __funnelshift_r(r[0], r[kMb], s);
+  }
+  uint32_t m = 0;
+  const int end = __ldg(cls_off + cls + 1);
+  for (int i = __ldg(cls_off + cls); i < end; ++i) {
+    const uint32_t* r = mw + (__ldg(cls_rows + i) * Wq + q) * kMb;
+    m |= __funnelshift_r(r[0], r[kMb], s);
+  }
+  return m;
+}
+
+// The starts of 32 that seed p hits with kp >= 1 misses allowed
+// (kp < jend): a bit-sliced counter of misses per start on kPlanes planes
+// (the first `b` used) that drops a start at kp + 1 (scan_filter.cu's
+// count_hits, returning the word).
+template <bool kDirect, int kPlanes>
+__device__ uint32_t count_word(const uint2* __restrict__ e, int jend, int kp,
+                               bool poison, const uint32_t* mw, int Wq,
+                               const int32_t* __restrict__ cls_off,
+                               const int32_t* __restrict__ cls_rows) {
+  constexpr int kUnroll = kPlanes <= 4 ? kPlanes : 1;
+  const uint32_t top = static_cast<uint32_t>(kp) + 1u;
+  const int b = 32 - __clz(top);
+  uint32_t c[kPlanes];
+#pragma unroll kUnroll
+  for (int i = 0; i < kPlanes; ++i) c[i] = 0;
+  uint32_t alive = kFull;
+  for (int j = 0; j < jend && alive != 0; ++j) {
+    const uint2 id = __ldg(e + j);
+    if (poison) {
+      alive &= ~class_mask<kDirect>(id.y, j, mw, Wq, cls_off, cls_rows);
+    }
+    uint32_t carry =
+        ~class_mask<kDirect>(id.x, j, mw, Wq, cls_off, cls_rows) & alive;
+    uint32_t at_top = kFull;
+#pragma unroll kUnroll
+    for (int i = 0; i < kPlanes; ++i) {
+      if (i < b) {
+        const uint32_t t = c[i] & carry;
+        c[i] ^= carry;
+        carry = t;
+        at_top &= ((top >> i) & 1u) ? c[i] : ~c[i];
+      }
+    }
+    alive &= ~at_top;
+  }
+  return alive;
+}
+
+// The hit word of seed p on this lane's microblock: bit b set iff the
+// window at t0 + b scores at least the seed's threshold.
+template <bool kDirect>
+__device__ uint32_t seed_word(const uint2* __restrict__ ent,
+                              const int2* __restrict__ pat, int p, int J,
+                              const uint32_t* mw, int Wq,
+                              const int32_t* __restrict__ cls_off,
+                              const int32_t* __restrict__ cls_rows) {
+  const int2 hd = __ldg(pat + p);
+  const int jend = hd.x & 0xffff;
+  const bool poison = (hd.x >> 16) & 1;
+  const int kp = hd.y;
+  if (kp < 0) return 0;
+  const uint2* e = ent + static_cast<int64_t>(p) * J;
+  uint32_t alive = kFull;
+  if (kp >= jend) {
+    // no count of misses can exclude a start: only a killed code can
+    for (int j = 0; poison && j < jend && alive != 0; ++j) {
+      alive &= ~class_mask<kDirect>(__ldg(e + j).y, j, mw, Wq, cls_off,
+                                       cls_rows);
+    }
+    return alive;
+  }
+  if (kp == 0) {
+    // every position must accept (a killed code is a miss too); two
+    // positions a step, so that their loads overlap
+    const uint32_t* ex = reinterpret_cast<const uint32_t*>(e);
+    int j = 0;
+    for (; j + 1 < jend; j += 2) {
+      const uint32_t a0 = __ldg(ex + 2 * j);
+      const uint32_t a1 = __ldg(ex + 2 * j + 2);
+      alive &= class_mask<kDirect>(a0, j, mw, Wq, cls_off, cls_rows) &
+               class_mask<kDirect>(a1, j + 1, mw, Wq, cls_off, cls_rows);
+      if (alive == 0) return 0;
+    }
+    if (j < jend) {
+      alive &= class_mask<kDirect>(__ldg(ex + 2 * j), j, mw, Wq, cls_off,
+                                      cls_rows);
+    }
+    return alive;
+  }
+  if (kp <= 2) {
+    return count_word<kDirect, 2>(e, jend, kp, poison, mw, Wq, cls_off,
+                                     cls_rows);
+  }
+  if (kp <= 14) {
+    return count_word<kDirect, 4>(e, jend, kp, poison, mw, Wq, cls_off,
+                                     cls_rows);
+  }
+  return count_word<kDirect, 16>(e, jend, kp, poison, mw, Wq, cls_off,
+                                    cls_rows);
+}
+
+// Text code at idx for the gate: from a microblock's staged text where the
+// position lies inside it, else from device memory; the sentinel outside
+// [0, n).
+struct StagedText {
+  const uint8_t* txt;  // the microblock's staged bytes, or null
+  int64_t lo;          // the position of txt[0]
+  int len;
+  const uint8_t* __restrict__ codes;
+  int64_t n;
+  __device__ __forceinline__ int operator()(int64_t idx) const {
+    const int64_t off = idx - lo;
+    if (txt != nullptr && off >= 0 && off < len) {
+      const uint8_t c = txt[off];
+      return c == kOut ? kSentinel : c;
+    }
+    return (idx >= 0 && idx < n) ? __ldg(codes + idx) : kSentinel;
+  }
+};
+
+template <bool kDirect>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n, int eos,
+                 const uint32_t* __restrict__ bits, int R,
+                 const uint2* __restrict__ ent, const int2* __restrict__ pat,
+                 int P, int J, const int32_t* __restrict__ cls_off,
+                 const int32_t* __restrict__ cls_rows,
+                 const int32_t* __restrict__ lengths,
+                 const int64_t* __restrict__ mb_count,
                  const int64_t* __restrict__ mb_idx, int64_t cap_mb,
                  const int32_t* __restrict__ gbits,
                  const int32_t* __restrict__ glen,
                  const int32_t* __restrict__ gdir, int Lg, int k, int band,
-                 int indels, int gate_words, int text_bytes, int pc,
+                 int indels, int gate_words, Geometry geo,
                  int32_t* __restrict__ out, int64_t cap) {
-  // shared layout: [gate bits][thr][jend][rem][weights][warp texts]
+  // shared layout: [gate bits][row bitsets][per warp: masks, queue, t0,
+  // text]
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* gbits_s = reinterpret_cast<int32_t*>(smem);
-  int32_t* thr_s = gbits_s + gate_words;
-  int32_t* jend_s = thr_s + pc;
-  int32_t* rem_s = jend_s + pc;
-  int16_t* w_s = reinterpret_cast<int16_t*>(rem_s + pc * Lmax);
-  uint8_t* txt =
-      reinterpret_cast<uint8_t*>(w_s + pc * Lmax * alpha) +
-      (threadIdx.x >> 5) * text_bytes;
-
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(gbits_s + gate_words);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const bool single = pc >= P;
-  const int row = Lmax * alpha;
-  const int span = 32 + Lmax - 1;
-  int64_t live = *mb_count;
-  if (live > cap_mb) live = cap_mb;
-  const int64_t ntiles = (live + kWarps - 1) / kWarps;
-  if (static_cast<int64_t>(blockIdx.x) >= ntiles) return;  // block-uniform
+  const int Wq = geo.Wq;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<unsigned char*>(bits_s + R * kBitWords) +
+      warp * geo.per_warp);
+  int32_t* q_anchor = reinterpret_cast<int32_t*>(masks + R * Wq * kMb);
+  int32_t* q_sid = q_anchor + kQueue;
+  int32_t* q_slot = q_sid + kQueue;
+  int32_t* t0s = q_slot + kQueue;
+  uint8_t* txt = reinterpret_cast<uint8_t*>(t0s + kMb);
 
-  const Gate g{gate_words ? gbits_s : gbits, glen, gdir, Lg, k,
-               band, indels != 0, gate_words != 0};
   for (int i = threadIdx.x; i < gate_words; i += blockDim.x) {
     gbits_s[i] = gbits[i];
   }
-  if (single) {
-    stage_chunk(w, thr, Lmax, alpha, P, 0, P, thr_s, jend_s, w_s, rem_s);
-  } else {
-    __syncthreads();  // the gate bits are staged
+  for (int i = threadIdx.x; i < R * kBitWords; i += blockDim.x) {
+    bits_s[i] = bits[i];
   }
-  int32_t* anchors = out + 1;
-  int32_t* sids = out + 1 + cap;
+  __syncthreads();  // the only block-wide barrier: warps run on their own
 
-  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t i = tile * kWarps + warp;
-    const bool active = i < live;
-    const int64_t t0 = active ? mb_idx[i] * 32 : 0;
-    __syncwarp();  // the warp's previous readers are done with txt
-    for (int x = lane; x < span; x += 32) {
-      const int64_t pos = t0 + x;
-      txt[x] = (active && pos < n) ? codes[pos] : static_cast<uint8_t>(eos);
+  const Gate g{gate_words ? gbits_s : gbits, glen, gdir, Lg, k,
+               band, indels != 0, gate_words != 0};
+  int64_t live = *mb_count;
+  if (live > cap_mb) live = cap_mb;
+  const int64_t ntiles = (live + kMb - 1) / kMb;
+  const int64_t wstride = static_cast<int64_t>(gridDim.x) * geo.warps;
+  const int span = geo.E + geo.hi;
+  const int mi = lane % kMb;  // this lane's microblock
+  constexpr int kLanesPerMb = 32 / kMb;
+  const int so = lane / kMb;  // and its first seed
+  const int rounds = (P + kLanesPerMb - 1) / kLanesPerMb;
+  const uint32_t* mw = masks + mi;
+  const uint32_t lt = (1u << lane) - 1u;
+  int qn = 0;  // queued hits, the same in every lane
+
+  // the gate over the first `cnt` queued hits, one per lane
+  auto flush = [&](int cnt) {
+    __syncwarp();
+    if (lane < cnt) {
+      const int a = q_anchor[lane];
+      const int s = q_sid[lane];
+      const int sl = q_slot[lane];
+      const StagedText text{
+          sl >= 0 ? txt + sl * geo.spanp : nullptr,
+          sl >= 0 ? static_cast<int64_t>(t0s[sl]) - geo.E : 0, span, codes,
+          n};
+      if (gate_ok(text, a, s, g)) sat::emit_pair(out, cap, a, s);
     }
     __syncwarp();
-    const int64_t t = t0 + lane;
-    const bool on = active && t < n;
-    for (int p0 = 0; p0 < P; p0 += pc) {
-      const int pc_cur = P - p0 < pc ? P - p0 : pc;
-      if (!single) {
-        __syncthreads();  // every warp is done with the previous chunk
-        stage_chunk(w, thr, Lmax, alpha, P, p0, pc_cur, thr_s, jend_s, w_s,
-                    rem_s);
-      }
-      if (!on) continue;
-      for (int pl = 0; pl < pc_cur; ++pl) {
-        if (!sat::window_hits(txt + lane, w_s + pl * row, rem_s + pl * Lmax,
-                              thr_s[pl], jend_s[pl], alpha)) {
-          continue;
+  };
+
+  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * geo.warps + warp;
+       tile < ntiles; tile += wstride) {
+    // queued hits of earlier tiles read their windows from device memory
+    if (lane < qn) q_slot[lane] = -1;
+    if (lane < kMb) {
+      const int64_t i = tile * kMb + lane;
+      t0s[lane] = i < live ? static_cast<int32_t>(mb_idx[i] * 32) : -1;
+    }
+    __syncwarp();
+    // 1. stage each microblock's text with its margins, 4 codes a load
+    // (t0 - E is a multiple of 4)
+    const int spanw = geo.spanp / 4;
+#pragma unroll 4
+    for (int i = lane; i < kMb * spanw; i += 32) {
+      const int m = i / spanw;
+      const int x = i - m * spanw;
+      const int t0 = t0s[m];
+      if (t0 < 0) continue;
+      const int64_t pos = static_cast<int64_t>(t0) - geo.E + 4 * x;
+      uint32_t v;
+      if (pos >= 0 && pos + 4 <= n) {
+        v = __ldg(reinterpret_cast<const uint32_t*>(codes) + (pos >> 2));
+      } else {
+        v = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const uint32_t c =
+              (pos + b >= 0 && pos + b < n) ? codes[pos + b] : kOut;
+          v |= c << (8 * b);
         }
-        const int s = p0 + pl;
-        const int64_t anchor = t + __ldg(lengths + s);
-        if (!gate_ok(codes, n, anchor, s, g)) continue;
-        const int slot = atomicAdd(out, 1);
-        if (slot < cap) {
-          anchors[slot] = static_cast<int32_t>(anchor);
-          sids[slot] = s;
+      }
+      reinterpret_cast<uint32_t*>(txt + m * geo.spanp)[x] = v;
+    }
+    __syncwarp();
+    // 2. the mask rows: word q of microblock m covers t0 + 32 q + lane
+    for (int m = 0; m < kMb; ++m) {
+      if (t0s[m] < 0) continue;  // warp-uniform
+      for (int q = 0; q < Wq; ++q) {
+        int c = txt[m * geo.spanp + geo.E + 32 * q + lane];
+        if (c == kOut) c = eos;  // past n
+        const int cw = c >> 5;
+        const int cb = c & 31;
+        for (int r0 = 0; r0 < R; r0 += 32) {
+          const int rn = R - r0 < 32 ? R - r0 : 32;
+          uint32_t mine = 0;
+          for (int i = 0; i < rn; ++i) {
+            const uint32_t set = bits_s[(r0 + i) * kBitWords + cw];
+            const uint32_t v = __ballot_sync(kFull, (set >> cb) & 1u);
+            if (lane == i) mine = v;
+          }
+          if (lane < rn) masks[((r0 + lane) * Wq + q) * kMb + m] = mine;
         }
       }
     }
+    __syncwarp();
+    // 3. every seed on every microblock; hits into the queue
+    const int t0 = t0s[mi];
+    const int64_t room = t0 < 0 ? 0 : n - t0;  // starts below n
+    const uint32_t valid =
+        room >= 32 ? kFull
+                   : (room <= 0 ? 0u : (1u << static_cast<int>(room)) - 1u);
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int s = so + rd * kLanesPerMb;
+      uint32_t hw = 0;
+      if (valid != 0 && s < P) {
+        hw = seed_word<kDirect>(ent, pat, s, J, mw, Wq, cls_off,
+                                   cls_rows) & valid;
+      }
+      const int len = hw != 0 ? __ldg(lengths + s) : 0;
+      while (__any_sync(kFull, hw != 0)) {
+        const bool has = hw != 0;
+        const unsigned bal = __ballot_sync(kFull, has);
+        if (has) {
+          const int b = __ffs(hw) - 1;
+          hw &= hw - 1u;
+          const int at = qn + __popc(bal & lt);
+          q_anchor[at] = t0 + b + len;
+          q_sid[at] = s;
+          q_slot[at] = mi;
+        }
+        qn += __popc(bal);
+        if (qn >= 32) {
+          flush(32);
+          if (lane + 32 < qn) {
+            q_anchor[lane] = q_anchor[lane + 32];
+            q_sid[lane] = q_sid[lane + 32];
+            q_slot[lane] = q_slot[lane + 32];
+          }
+          qn -= 32;
+          __syncwarp();
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with the masks before the next tile
   }
+  if (qn > 0) flush(qn);
 }
 
-LaunchCache g_launch;
+LaunchCache g_launch[2];
+
+template <bool kDirect>
+cudaError_t launch(const uint8_t* codes, int64_t n, int eos,
+                   const uint32_t* bits, int R, const uint2* ent,
+                   const int2* pat, int P, int J, const int32_t* cls_off,
+                   const int32_t* cls_rows, const int32_t* lengths, int Lmax,
+                   const int64_t* mb_count, const int64_t* mb_idx,
+                   int64_t cap_mb, const int32_t* gbits, const int32_t* glen,
+                   const int32_t* gdir, int Lg, int k, int band, int indels,
+                   int32_t* out, int64_t cap, cudaStream_t stream) {
+  const int64_t gate_bytes = static_cast<int64_t>(P) * Lg * 4;
+  const int gate_words =
+      gate_bytes <= kGateSmemMax ? static_cast<int>(gate_bytes / 4) : 0;
+  const int fixed = round_up(gate_words * 4 + R * kBitWords * 4, 16);
+  const Geometry geo = geometry(R, J, Lmax, Lg, band, fixed);
+  if (geo.warps < 1) return cudaErrorInvalidValue;
+  const int threads = geo.warps * 32;
+  int64_t grid = 0;
+  const cudaError_t err =
+      full_grid(seed_gate_kernel<kDirect>, threads, geo.smem,
+                g_launch[kDirect ? 1 : 0], &grid);
+  if (err != cudaSuccess) return err;
+  const int64_t ntiles = (cap_mb + kMb - 1) / kMb;
+  const int64_t need = (ntiles + geo.warps - 1) / geo.warps;
+  if (grid > need) grid = need;
+  seed_gate_kernel<kDirect>
+      <<<static_cast<unsigned>(grid), threads, geo.smem, stream>>>(
+          codes, n, eos, bits, R, ent, pat, P, J, cls_off, cls_rows, lengths,
+          mb_count, mb_idx, cap_mb, gbits, glen, gdir, Lg, k, band, indels,
+          gate_words, geo, out, cap);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // Survivors of the seed scan and gate into out[0 .. 1 + 2 cap): out[0] the
 // true count (the caller zeroes it first), out[1 ..] the anchors,
-// out[1 + cap ..] the seed ids.  codes [>= n] uint8 (codes < alpha),
-// w [Lmax, alpha, P] int16, thr/lengths [P] int32, mb_count one int64 and
-// mb_idx [cap_mb] int64 on the device, gate bits [P, Lg], glen [P],
-// gdir [P] int32.  Returns the cudaError_t of the launch (0 on success).
-extern "C" int sat_seed_gate(const void* codes, int64_t n, const void* w,
-                             const void* thr, const void* lengths, int Lmax,
-                             int alpha, int P, int eos, const void* mb_count,
-                             const void* mb_idx, int64_t cap_mb,
-                             const void* gbits, const void* glen,
-                             const void* gdir, int Lg, int k, int band,
-                             int indels, void* out, int64_t cap,
-                             void* stream) {
+// out[1 + cap ..] the seed ids.  On the device: codes [>= n] uint8
+// (codes < alpha <= 30); the seed tables of scan_kernel.py::filter_tables
+// (bits [R][8] uint32, ent [P][J] uint2, pat [P] int2, and in code mode
+// (direct == 0) cls_off, cls_rows int32); lengths [P] int32; mb_count one
+// int64 and mb_idx [cap_mb] int64; gate bits [P, Lg], glen [P], gdir [P]
+// int32; codes 4-byte aligned.  Returns the cudaError_t of the launch (0
+// on success).
+extern "C" int sat_seed_gate(const void* codes, int64_t n, int eos,
+                             const void* bits, int R, const void* ent,
+                             const void* pat, int P, int J,
+                             const void* cls_off, const void* cls_rows,
+                             int direct, const void* lengths, int Lmax,
+                             const void* mb_count, const void* mb_idx,
+                             int64_t cap_mb, const void* gbits,
+                             const void* glen, const void* gdir, int Lg,
+                             int k, int band, int indels, void* out,
+                             int64_t cap, void* stream) {
   if (cap_mb <= 0) return 0;
-  if (Lmax < 1 || alpha < 1 || alpha > 256 || P < 1 || eos < 0 ||
-      eos >= alpha || Lg < 1 || k < 0 || band < 0 || band > kMaxBand ||
-      cap < 1) {
+  if (n < 1 || n + Lmax >= (int64_t{1} << 31) || R < 0 || P < 1 || J < 0 ||
+      J > 0xffff || Lmax < 1 || eos < 0 || eos > 255 ||
+      (!direct && R > 256) || Lg < 1 || k < 0 || band < 0 ||
+      band > kMaxBand || cap < 1 ||
+      (reinterpret_cast<uintptr_t>(codes) & 3) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int text_bytes = round_up(32 + Lmax - 1, 16);
-  const int text_all = kWarps * text_bytes;
-  const int64_t gate_bytes = static_cast<int64_t>(P) * Lg * 4;
-  const int gate_words =
-      gate_bytes <= kGateSmemMax ? static_cast<int>(gate_bytes / 4) : 0;
-  const int per = per_pattern_bytes(Lmax, alpha);
-  int pc = (kSmemBudget - text_all - gate_words * 4) / per;
-  if (pc < 1) pc = 1;
-  if (pc > P) pc = P;
-  const int smem = gate_words * 4 + pc * per + text_all;
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t grid = 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto c = static_cast<const uint8_t*>(codes);
+  const auto b = static_cast<const uint32_t*>(bits);
+  const auto e = static_cast<const uint2*>(ent);
+  const auto pt = static_cast<const int2*>(pat);
+  const auto co = static_cast<const int32_t*>(cls_off);
+  const auto cr = static_cast<const int32_t*>(cls_rows);
+  const auto ln = static_cast<const int32_t*>(lengths);
+  const auto mc = static_cast<const int64_t*>(mb_count);
+  const auto mx = static_cast<const int64_t*>(mb_idx);
+  const auto gb = static_cast<const int32_t*>(gbits);
+  const auto gl = static_cast<const int32_t*>(glen);
+  const auto gd = static_cast<const int32_t*>(gdir);
+  const auto o = static_cast<int32_t*>(out);
   const cudaError_t err =
-      full_grid(seed_gate_kernel, kThreads, smem, g_launch, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t ntiles = (cap_mb + kWarps - 1) / kWarps;
-  if (grid > ntiles) grid = ntiles;
-  seed_gate_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), n,
-      static_cast<const int16_t*>(w), static_cast<const int32_t*>(thr),
-      static_cast<const int32_t*>(lengths), Lmax, alpha, P, eos,
-      static_cast<const int64_t*>(mb_count),
-      static_cast<const int64_t*>(mb_idx), cap_mb,
-      static_cast<const int32_t*>(gbits), static_cast<const int32_t*>(glen),
-      static_cast<const int32_t*>(gdir), Lg, k, band, indels, gate_words,
-      text_bytes, pc, static_cast<int32_t*>(out), cap);
-  return static_cast<int>(cudaGetLastError());
+      direct ? launch<true>(c, n, eos, b, R, e, pt, P, J, co, cr, ln, Lmax,
+                            mc, mx, cap_mb, gb, gl, gd, Lg, k, band, indels,
+                            o, cap, s)
+             : launch<false>(c, n, eos, b, R, e, pt, P, J, co, cr, ln, Lmax,
+                             mc, mx, cap_mb, gb, gl, gd, Lg, k, band, indels,
+                             o, cap, s);
+  return static_cast<int>(err);
 }

@@ -14,9 +14,11 @@ That gate relies on every pattern being longer than k.
 :func:`myers_eqbits` is the port's copy of the JAX host layout builder:
 patterns pair greedily into 32-bit words, field A at bits [0, la), a zero
 guard bit at la (the add's carry dies there), field B from la + 1.
-:func:`myers_pairs` launches ``csrc/myers.cu`` on a CUDA tensor and runs
-:func:`myers_pairs_ref`, the same recurrence over int64 words in plain
-PyTorch, on a CPU tensor.
+:func:`myers_pairs` launches ``csrc/myers.cu`` on a CUDA tensor (which
+moves field B to the top of its word and keeps the scores biased by
+-(k + 1); ``tests/test_torch_myers_words.py`` models that arithmetic) and
+runs :func:`myers_pairs_ref`, the same recurrence over int64 words in
+plain PyTorch, on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -252,6 +254,9 @@ def myers_pairs(codes: torch.Tensor, n: int, mt: MyersTables, eos: int,
     from . import build
 
     lib = build.library("myers")
+    if codes.data_ptr() % 16:
+        # the kernel reads its text 16 bytes at a time
+        codes = codes[:n].clone()
     halo = mt.Lmax + k
     segc = segc or myers_segc(n, halo)
     words = np.ascontiguousarray(mt.words_np, np.int32)

@@ -6,8 +6,10 @@ hit stream of ``ConvScanner.scan_gated``, not to the TPU's slot layout:
 
 - :func:`seed_gate` enumerates every exact seed hit in the candidate
   microblocks and keeps those that pass the extension gate.  On a CUDA
-  tensor it launches the hand-written kernel ``csrc/seed_gate.cu``; on a
-  CPU tensor it runs :func:`seed_gate_ref`, the plain PyTorch version.
+  tensor it launches the hand-written kernel ``csrc/seed_gate.cu`` (a
+  bit-parallel enumeration over :func:`.scan_kernel.filter_tables` of the
+  seed weights, then the gate DP over a per-warp queue of hits); on a CPU
+  tensor it runs :func:`seed_gate_ref`, the plain PyTorch version.
 - :func:`gated_hits` is the whole pipeline: the scan filter over the
   seed tables (:func:`.scan_kernel.scan_occupancy`), compaction of the
   candidate microblocks, then :func:`seed_gate`, in one packed int32 row.
@@ -19,7 +21,7 @@ import torch
 
 from ..compact import compact_mask
 from ..gate import gate_ok_ref
-from .scan_kernel import MB, scan_occupancy
+from .scan_kernel import MB, filter_tables, scan_occupancy
 
 # the widest gate band the kernel keeps in registers (2 * 8 + 1 cells)
 MAX_BAND = 8
@@ -124,8 +126,10 @@ def seed_gate(codes: torch.Tensor, n: int, dt, mb_count: torch.Tensor,
     :func:`..compact.compact_mask` over the seed filter's occupancy (the
     count is read on the device); ``gt`` a :class:`..gate.GateTables` on
     the same device.  On a CUDA tensor this launches ``csrc/seed_gate.cu``
-    on the current stream and counts the launch in ``seed_gate.launches``;
-    on a CPU tensor it is :func:`seed_gate_ref`."""
+    on the current stream over the :func:`.scan_kernel.filter_tables` of
+    the seed weights (which raises ``ValueError`` for weights not of the
+    port's 0/1 + poison form) and counts the launch in
+    ``seed_gate.launches``; on a CPU tensor it is :func:`seed_gate_ref`."""
     if codes.device.type == "cpu":
         return seed_gate_ref(codes, n, dt, mb_count, mb_idx, gt, eos,
                              indels, cap)
@@ -134,17 +138,23 @@ def seed_gate(codes: torch.Tensor, n: int, dt, mb_count: torch.Tensor,
     _check(codes, n, dt, mb_count, mb_idx, gt, eos, cap)
     from . import build
 
+    ft = filter_tables(dt.weights16, dt.thresholds)
     lib = build.library("seed_gate")
-    Lmax, alpha, S = dt.weights16.shape
+    if codes.data_ptr() % 4:
+        # the kernel stages its text 4 bytes at a time
+        codes = codes[:n].clone()
+    Lmax = dt.weights16.shape[0]
     out = torch.zeros(1 + 2 * cap, dtype=torch.int32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.sat_seed_gate(
-            codes.data_ptr(), n, dt.weights16.data_ptr(),
-            dt.thresholds.data_ptr(), dt.lengths.data_ptr(), Lmax, alpha, S,
-            eos, mb_count.data_ptr(), mb_idx.data_ptr(), mb_idx.numel(),
-            gt.bits.data_ptr(), gt.glen.data_ptr(), gt.gdir.data_ptr(),
-            gt.Lg, gt.k, gt.band, int(indels), out.data_ptr(), cap, stream)
+            codes.data_ptr(), n, eos, ft.bits.data_ptr(), ft.R,
+            ft.ent.data_ptr(), ft.pat.data_ptr(), ft.P, ft.J,
+            ft.cls_off.data_ptr(), ft.cls_rows.data_ptr(), int(ft.direct),
+            dt.lengths.data_ptr(), Lmax, mb_count.data_ptr(),
+            mb_idx.data_ptr(), mb_idx.numel(), gt.bits.data_ptr(),
+            gt.glen.data_ptr(), gt.gdir.data_ptr(), gt.Lg, gt.k, gt.band,
+            int(indels), out.data_ptr(), cap, stream)
     if rc != 0:
         raise RuntimeError(f"seed_gate launch failed: cudaError_t {rc}")
     seed_gate.launches += 1

@@ -8,7 +8,8 @@ reports whether jax or any module of the JAX package
 was imported, for exact search, for ``-k 1`` (the gated seed scan and the
 native extension) and for the filter engine (``-k 2``: the Myers scan and
 the cluster verify; ``-K 2``: the poisoned k-mismatch scan); a source
-scan checks every file of the package and ``chip_smoke.py``.
+scan checks every file of the package, ``chip_smoke.py`` and
+``kernel_probe.py``.
 """
 
 import io
@@ -119,7 +120,8 @@ JAX_PKG_IMPORT = re.compile(
 
 
 def test_no_file_imports_jax():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "kernel_probe.py"]
     assert len(files) >= 12
     for mod in ("ops/cuda/slots.py", "ops/gapped_seeds.py",
                 "models/pcr_match.py", "apps/pcr_match.py"):

@@ -168,3 +168,28 @@ def test_cuda_kernel_matches_plain(k):
         assert myers_pairs.launches == before + 1
         assert int(got[0]) == int(want[0]) > 0
         assert pairs(got) == pairs(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", list(range(1, 17)) + [18, 22, 27, 32])
+def test_cuda_kernel_each_word_count(nw):
+    """Each instance of the kernel's dispatch: exact word counts 1 to 16,
+    and counts that take the padded instances (20, 24, 28, 32 words),
+    as singletons of 17 to 24 bases on text with EOS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(nw)
+    pats = ["".join("ACGT"[c] for c in rng.integers(0, 4, size=ln))
+            for ln in rng.integers(17, 25, size=nw)]
+    n = 50_000
+    plant = [(500 + 1500 * i, p) for i, p in enumerate(pats)]
+    _jt, pt, codes = make(n, pats, nw, tuple(range(77, n, 4093)), plant)
+    mt = myers_tables(pt)
+    assert mt.nw == nw
+    mt = mt.to("cuda")
+    dev = torch.from_numpy(codes).cuda()
+    got = myers_pairs(dev, n, mt, EOS, 2, CAP)
+    want = myers_pairs_ref(dev, n, mt, EOS, 2, CAP)
+    torch.cuda.synchronize()
+    assert int(got[0]) == int(want[0]) >= nw
+    assert pairs(got) == pairs(want)

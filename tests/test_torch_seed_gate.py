@@ -264,3 +264,45 @@ def test_cuda_kernel_matches_plain(block, k, indels):
         assert seed_gate.launches == before + 1
         assert int(got[0]) == int(want[0]) > 0
         assert survivors(got.cpu(), 4096) == survivors(want.cpu(), 4096)
+
+
+@pytest.mark.cuda
+def test_cuda_queue_flushes_many_times(block):
+    """Five-base half seeds over every microblock: hundreds of seed hits,
+    so the per-warp queue flushes many times, and at cap 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    db = block
+    n = len(db.codes)
+    short = ["ACGTTGCAAC", "GGATCCATGC", "TTAGCCAGTA", "CAGTACGATC",
+             "GTCAGTTACG", "ATGCGTACCA"]
+    seeds, exts, dirs, offs = [], [], [], []
+    for p in short:
+        seeds += [p[:5], p[5:]]
+        exts += [p[5:], p[:5]]
+        dirs += [1, -1]
+        offs += [0, 5]
+    dirs, offs = np.asarray(dirs, np.int32), np.asarray(offs, np.int32)
+    dt = device_tables(seed_tables(db, seeds), 0, False, "cuda")
+    gt = GateTables.from_seed_meta(db, exts, dirs, offs, 1, 1, False,
+                                   False).to("cuda")
+    open_gate = GateTables.from_seed_meta(
+        db, [""] * len(seeds), np.ones(len(seeds), np.int32),
+        np.zeros(len(seeds), np.int32), 1, 1, False, False).to("cuda")
+    codes = torch.from_numpy(db.codes).cuda()
+    mb_count, mb_idx = all_microblocks(n)
+    mb_count, mb_idx = mb_count.cuda(), mb_idx.cuda()
+    cap = 1 << 14
+    for g in (open_gate, gt):
+        want = seed_gate_ref(codes, n, dt, mb_count, mb_idx, g, EOS, True,
+                             cap)
+        for c in (cap, 1):
+            got = seed_gate(codes, n, dt, mb_count, mb_idx, g, EOS, True, c)
+            torch.cuda.synchronize()
+            assert int(got[0]) == int(want[0]) > 0
+            kept = survivors(got.cpu(), c)
+            assert set(kept) <= set(survivors(want.cpu(), cap))
+            if c == cap:
+                assert kept == survivors(want.cpu(), cap)
+        if g is open_gate:
+            assert int(want[0]) > 3 * 32  # every seed hit: three flushes
