@@ -6,8 +6,8 @@
 Builds the port's CUDA kernels from this checkout, holds each against its
 plain PyTorch version, then drives the port's main paths (exact, k = 1,
 k = 2 and ``-K 2`` primer_match, both strands; the 50,000-pattern exact
-batch and its k = 1 halves run; pcr_match) at full size and checks their
-output:
+batch and its k = 1 halves run; pcr_match; peptides over the six-frame
+translation) at full size and checks their output:
 
 1. card: name and power limit, kernel build time;
 2. kernel against plain: ``scan_occupancy`` on the card equals
@@ -86,16 +86,24 @@ output:
     extension) against the CPU route (native census, inline gate) over a
     2^24 prefix, then over 2^28, with a ``torch.profiler`` breakdown of
     both; an older commit's census kernel timed beside this one on both
-    seed sets, and ``gate_slots`` built over the older commit's
-    ``gate.cuh`` beside this one, when ``PARENT_DIR`` holds their
-    sources;
+    seed sets, and the older commit's ``gate_slots`` beside this one,
+    when ``PARENT_DIR`` holds their sources;
 13. pcr_match: ``pairs_stream`` of 10 primer pairs over the resident 2^28
     database at k = 0, equal to ``pairs``;
-14. CLI: ``-k 2 -r -c``, ``-k 2 -r``, ``-K 2 -r`` and the long primers with
+14. peptide_scan's path: the six-frame translation of the 2^28 database
+    (``translate_db``, timed on the host), 10 peptides of 9 residues read
+    out of the forward frames at equal steps, k = 0, ``engine_hits``
+    equal to the host route's, ``engine_hits_stream`` throughput counted
+    in DNA bases (bench.py's ``bench_peptide``); then bench.py's
+    wide-alphabet row (``bench_wide_wc``): 15 symbols over 16 M, 10
+    IUPAC 14-mers with ``-w -r``, against the host route;
+15. CLI: ``-k 2 -r -c``, ``-k 2 -r``, ``-K 2 -r`` and the long primers with
     ``-k 2 -r``; on a 600,000-base corpus the seed-table engines, ``-N 6
     -k 1 -r`` (hash: the census rung), ``-N 15 -K 2 -r`` (gs) and the long
     primers with ``-N 15 -k 2 -r`` (gs: the pattern-blocked rung);
-    ``pcr_match -r -M 2000`` at k = 0 and ``-k 1``; device bytes equal to
+    ``pcr_match -r -M 2000`` at k = 0 and ``-k 1``; on a normalized copy
+    of the corpus ``peptide_scan -T A``, ``-T A -K 1`` and ``primer_match
+    -T -r`` over 10 peptides of its translation; device bytes equal to
     host bytes.
 
 Every phase raises on a mismatch.  The line before the last is a JSON
@@ -109,6 +117,7 @@ import inspect
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -338,13 +347,13 @@ def wide_db(n, seed):
 
 # An older commit's kernels, timed beside this checkout's when their
 # sources (with the headers they include) have been unpacked into this
-# git-ignored directory, e.g. fb4b3cd's Myers, seed_gate and gate_slots:
-#   mkdir -p build/parent_kernels && for f in myers.cu seed_gate.cu \
-#     gate_slots.cu gate.cuh scan_chunk.cuh slot_out.cuh; do git show \
-#     fb4b3cd:sequence_alignment_tools_tpu_torch/ops/cuda/csrc/$f \
+# git-ignored directory, e.g. 371464f's seed_gate and gate_slots:
+#   mkdir -p build/parent_kernels && for f in seed_gate.cu gate_slots.cu \
+#     gate.cuh scan_chunk.cuh slot_out.cuh; do git show \
+#     371464f:sequence_alignment_tools_tpu_torch/ops/cuda/csrc/$f \
 #     > build/parent_kernels/$f; done
-# (e27d89a's sellers.cu, seed_slots.cu and 40b2571's scan_filter.cu, with
-# their headers, are taken the same way)
+# (fb4b3cd's myers.cu, e27d89a's sellers.cu, seed_slots.cu and 40b2571's
+# scan_filter.cu, with their headers, are taken the same way)
 PARENT_DIR = os.path.join("build", "parent_kernels")
 
 
@@ -355,9 +364,9 @@ def parent_kernels():
     byte-cell row DP with its own wrapper's segments),
     ``seed_slots(codes, n, mt, cap) -> row``, ``myers(codes, n, mt, eos,
     k, cap) -> row``, ``seed_gate(codes, n, dt, mb_count, mb_idx, gt,
-    eos, indels, cap) -> row`` (the lane-per-start form) and
-    ``gate_slots(codes, n, slots, lengths, gt, indels, cap) -> row``, each
-    present when its source is."""
+    eos, indels, cap) -> row`` (371464f's bit-parallel form) and
+    ``gate_slots(codes, n, slots, lengths, gt, indels, cap) -> row``
+    (371464f's thread per slot), each present when its source is."""
     import ctypes
 
     import torch
@@ -477,19 +486,25 @@ def parent_kernels():
     if "seed_gate" in libs:
         gfn = libs["seed_gate"].sat_seed_gate
         gfn.restype = i32
-        gfn.argtypes = [vp, i64, vp, vp, vp, i32, i32, i32, i32, vp, vp, i64,
-                        vp, vp, vp, i32, i32, i32, i32, vp, i64, vp]
+        gfn.argtypes = [vp, i64, i32, vp, i32, vp, vp, i32, i32, vp, vp, i32,
+                        vp, i32, vp, vp, i64, vp, vp, vp, i32, i32, i32, i32,
+                        vp, i64, vp]
 
         def sgate(codes, n, dt, mb_count, mb_idx, gt, eos, indels, cap):
-            Lmax, alpha, S = dt.weights16.shape
+            from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel \
+                import filter_tables
+
+            ft = filter_tables(dt.weights16, dt.thresholds)
             out = torch.zeros(1 + 2 * cap, dtype=torch.int32,
                               device=codes.device)
-            rc = gfn(codes.data_ptr(), n, dt.weights16.data_ptr(),
-                     dt.thresholds.data_ptr(), dt.lengths.data_ptr(), Lmax,
-                     alpha, S, eos, mb_count.data_ptr(), mb_idx.data_ptr(),
-                     mb_idx.numel(), gt.bits.data_ptr(), gt.glen.data_ptr(),
-                     gt.gdir.data_ptr(), gt.Lg, gt.k, gt.band, int(indels),
-                     out.data_ptr(), cap, stream())
+            rc = gfn(codes.data_ptr(), n, eos, ft.bits.data_ptr(), ft.R,
+                     ft.ent.data_ptr(), ft.pat.data_ptr(), ft.P, ft.J,
+                     ft.cls_off.data_ptr(), ft.cls_rows.data_ptr(),
+                     int(ft.direct), dt.lengths.data_ptr(),
+                     dt.weights16.shape[0], mb_count.data_ptr(),
+                     mb_idx.data_ptr(), mb_idx.numel(), gt.bits.data_ptr(),
+                     gt.glen.data_ptr(), gt.gdir.data_ptr(), gt.Lg, gt.k,
+                     gt.band, int(indels), out.data_ptr(), cap, stream())
             if rc:
                 raise RuntimeError(f"parent seed_gate: cudaError_t {rc}")
             return out
@@ -854,6 +869,42 @@ def draw_patterns(codes, count, length):
     if not (rows < 4).all():
         raise AssertionError("a drawn pattern holds an EOS")
     return [r.tobytes().decode() for r in table[rows]]
+
+
+def forward_peptides(tdb, count, length=9):
+    """``count`` peptides of ``length`` residues read out of the forward
+    frames of the translation ``tdb`` at equal steps, each the first
+    window at or past its step that holds no stop, EOS or X."""
+    aa = tdb.aa_db
+    end = int(tdb.frame_end_pos[2])
+    out = []
+    for i in range(count):
+        at = i * (end // count) + 1_000
+        while True:
+            p = aa.decode(at, at + length)
+            if p.isalpha() and "X" not in p:
+                break
+            at += length
+        out.append(p)
+    return out
+
+
+def wide_corpus_db():
+    """bench.py's wide-alphabet corpus (make_wide_corpus): 4 entries of
+    4,000,000 symbols, ACGT with 2% of the 11 IUPAC ambiguity codes, seed
+    43."""
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
+
+    rng = np.random.default_rng(43)
+    table = np.frombuffer(b"ACGTRYSWKMBDHVN", dtype=np.uint8)
+    entries = []
+    for e in range(4):
+        base = rng.integers(0, 4, size=4_000_000)
+        amb = rng.random(4_000_000) < 0.02
+        base[amb] = rng.integers(4, 15, size=int(amb.sum()))
+        entries.append((f"wide{e} wide-alphabet benchmark entry {e}",
+                        table[base].tobytes()))
+    return SeqDB.from_entries(entries)
 
 
 def literal_pattern_set(pats):
@@ -1986,8 +2037,7 @@ def main():
     g_ms = cuda_ms(lambda: gate_slots(main_dev, MAIN_N, xslots, mt_x.lengths,
                                       gt_x, True, surv_cap), reps=10)
     if "gate_slots" in parents:
-        # the same kernel source over the older gate.cuh
-        if check_slots("gate_slots of the older gate.cuh, n=2^28",
+        if check_slots("gate_slots of the older commit, n=2^28",
                        parents["gate_slots"](main_dev, MAIN_N, xslots,
                                              mt_x.lengths, gt_x, True,
                                              surv_cap),
@@ -2078,6 +2128,87 @@ def main():
         f"(host clock, 5 runs)")
     del mp
 
+    # 12b. peptide_scan's path: peptides over the six-frame translation
+    from sequence_alignment_tools_tpu_torch.io.compress import (
+        compress,
+        load_db,
+    )
+    from sequence_alignment_tools_tpu_torch.io.translate import translate_db
+
+    t0 = time.perf_counter()
+    tdb = translate_db(db, all_frames=True)
+    s_tr = time.perf_counter() - t0
+    peps = forward_peptides(tdb, 10)
+    pps = build_pattern_set(peps)
+    mpep = PrimerMatchModel(tdb.aa_db, pps, k=0, device=dev)
+    mpep.use_host = False
+    mpep_host = PrimerMatchModel(tdb.aa_db, pps, k=0, device=dev)
+    mpep_host.use_host = True
+    t0 = time.perf_counter()
+    want_pep = list(mpep_host.engine_hits())
+    s_pep_host = time.perf_counter() - t0
+    scan_occupancy.launches = 0
+    got_pep = list(mpep.engine_hits())
+    pep_launches = scan_occupancy.launches
+    if pep_launches < 1 or got_pep != want_pep or len(want_pep) < 10:
+        raise AssertionError(f"peptide path: {len(got_pep)} vs "
+                             f"{len(want_pep)} hits, {pep_launches} "
+                             "scan_occupancy launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = [list(run) for run in mpep.engine_hits_stream(3)]
+    s_pep = time.perf_counter() - t0
+    if runs != [want_pep] * 3:
+        raise AssertionError("peptide engine_hits_stream changed its hits")
+    log(f"peptide path: translate_db of n=2^28 (6 frames, "
+        f"{len(tdb.aa_db.codes)} residues) {s_tr:.3f} s on the host; 10 "
+        f"peptides of 9 residues, k=0, engine_hits == host route "
+        f"({len(want_pep)} hits; host route {s_pep_host:.3f} s), "
+        f"scan_occupancy launches {pep_launches}; engine_hits_stream on "
+        f"{smi}: {s_pep / 3:.6f} s per run, "
+        f"{3 * MAIN_N / s_pep / 1e9:.3f} Gbases/s in DNA bases (host "
+        f"clock, 3 runs)")
+    del mpep, mpep_host, tdb
+
+    # 12c. the wide-alphabet route: 15 symbols, 10 IUPAC 14-mers, -w, -r
+    wide16 = wide_corpus_db()
+    wtext16 = wide16.decode(0, 200_000)
+    wpats = []
+    at = 100
+    while len(wpats) < 10:
+        p = wtext16[at : at + 14]
+        if len(p) == 14 and "\n" not in p:
+            wpats.append(p)
+        at += 17_000
+    wps = build_pattern_set(wpats, rev_comp=True)
+    mwide = PrimerMatchModel(wide16, wps, k=0, wc=True, device=dev)
+    mwide.use_host = False
+    mwide_host = PrimerMatchModel(wide16, wps, k=0, wc=True, device=dev)
+    mwide_host.use_host = True
+    want_wide = list(mwide_host.engine_hits())
+    scan_occupancy.launches = 0
+    got_wide = list(mwide.engine_hits())
+    wide_launches = scan_occupancy.launches
+    if wide_launches < 1 or got_wide != want_wide or len(want_wide) < 10:
+        raise AssertionError(f"wide-alphabet path: {len(got_wide)} vs "
+                             f"{len(want_wide)} hits, {wide_launches} "
+                             "scan_occupancy launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = [list(run) for run in mwide.engine_hits_stream(5)]
+    s_wide = time.perf_counter() - t0
+    if runs != [want_wide] * 5:
+        raise AssertionError("wide-alphabet engine_hits_stream changed its "
+                             "hits")
+    n_wide = len(wide16.codes)
+    log(f"wide-alphabet path: {wide16.alphabet_size} codes, n={n_wide}, 10 "
+        f"IUPAC 14-mers with -w -r (P={wps.n_total}), k=0: engine_hits == "
+        f"host route ({len(want_wide)} hits), scan_occupancy launches "
+        f"{wide_launches}; engine_hits_stream on {smi}: "
+        f"{s_wide / 5:.6f} s per run, {5 * n_wide / s_wide / 1e9:.3f} "
+        f"Gbases/s (host clock, 5 runs)")
+    del mwide, mwide_host, wide16
+
     # 13. CLI: device route and host route print the same bytes
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "corpus.fasta")
@@ -2091,6 +2222,14 @@ def main():
         with open(lfile, "w") as f:
             f.write("\n".join(LONG) + "\n")
         pair_arg = " ".join(bench_pairs(entry0))
+        # the translated tools read a normalized copy of the corpus
+        tfasta = os.path.join(tmp, "normalized.fasta")
+        shutil.copyfile(fasta, tfasta)
+        compress(tfasta, normalize=True)
+        pepfile = os.path.join(tmp, "peptides.txt")
+        with open(pepfile, "w") as f:
+            f.write("\n".join(forward_peptides(
+                translate_db(load_db(tfasta), all_frames=True), 10)) + "\n")
         pm = ["scan_occupancy"]
         # the seed-table engines run on the small corpus: their candidate
         # lists (every 4-base seed hit of the hash engine) are walked in
@@ -2120,7 +2259,12 @@ def main():
                 ("pcr_match", fasta, ["-p", pair_arg],
                  ["-r", "-M", "2000"], pm),
                 ("pcr_match", fasta, ["-p", pair_arg],
-                 ["-r", "-M", "2000", "-k", "1"], pm + ["seed_gate"])):
+                 ["-r", "-M", "2000", "-k", "1"], pm + ["seed_gate"]),
+                ("peptide_scan", tfasta, ["-P", pepfile], ["-T", "A"], pm),
+                ("peptide_scan", tfasta, ["-P", pepfile],
+                 ["-T", "A", "-K", "1"], pm + ["seed_gate"]),
+                ("primer_match", tfasta, ["-P", pepfile], ["-T", "-r"],
+                 pm)):
             argv = ["-i", db_file] + pats_flag + flags
             long_set = pats_flag[1] == lfile
             os.environ["SAT_HOST_SCAN"] = "0"
@@ -2159,8 +2303,12 @@ def main():
             if tool == "pcr_match" and out_dev.count("\n") < 10:
                 raise AssertionError("CLI pcr_match found fewer than its 10 "
                                      "planted pairs")
+            if db_file == tfasta and out_dev.count("\n") < 10:
+                raise AssertionError(f"CLI {tool} {flags}: fewer hits than "
+                                     "its 10 peptides")
             log(f"CLI {tool} {' '.join(flags)}"
                 f"{' (long primers)' if long_set else ''}"
+                f"{' (normalized corpus)' if db_file == tfasta else ''}"
                 f"{' (600,000-base corpus)' if db_file == small else ''}: "
                 f"{len(out_dev)} bytes, {out_dev.count(chr(10))} lines, "
                 f"device == host, device run {s_cli:.3f} s, launches "

@@ -370,15 +370,14 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.3f} s")
     probe = build_probe_libs()
     myers_sass("myers.cu", str(libs["myers"]), False)
+    # the main path's instance: direct mask rows, band 1
     sass_loops_report("seed_gate.cu", str(libs["seed_gate"]),
-                      "seed_gate_kernelILb1E", 6)
+                      "seed_gate_kernelILb1ELi1E", 6)
     if "older_myers" in probe:
         myers_sass("older myers.cu", probe["older_myers"], True)
     if "older_seed_gate" in probe:
-        c, body = sass_counts(probe["older_seed_gate"], "seed_gate",
-                              ("LDS.U16",))
-        sass_line("older seed_gate.cu, the weight loop", c,
-                  [t.split()[0] for t in body], "trip")
+        sass_loops_report("older seed_gate.cu", probe["older_seed_gate"],
+                          "seed_gate_kernelILb1E", 6)
     myers_padding(probe["myers_probe"], smi)
     return 0
 

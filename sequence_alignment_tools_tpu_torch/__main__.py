@@ -9,6 +9,7 @@ import sys
 _TOOLS = {
     "primer_match": ("primer_match", "main"),
     "pcr_match": ("pcr_match", "main"),
+    "peptide_scan": ("peptide_scan", "main"),
 }
 
 

@@ -5,9 +5,9 @@ options (``USAGE``, ``parse_args`` and ``load_patterns`` are the port's
 copies of the JAX app's), the same verbose protocol and the same output
 bytes, for exact search, for ``-k``/``-K`` through the pigeonhole engines
 (halves, bases), the k-edit and k-mismatch filter engine (``-k 2``,
-``-K 2``) and the seed-table engines (``-N 6`` hash, ``-N 15`` gs).
-``-T`` (translated search) exits 1 with a message naming its ROADMAP
-item.
+``-K 2``), the seed-table engines (``-N 6`` hash, ``-N 15`` gs) and
+``-T`` (peptide patterns against the 6-frame translation,
+:mod:`..io.translate`).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..io.patterns import (
     read_pattern_words,
     read_sts,
 )
+from ..io.translate import translate_db
 from ..models.primer_match import (
     PrimerMatchModel,
     db_pick_report,
@@ -35,6 +36,7 @@ from ..utils.format import (
     alignformat,
     countformat,
 )
+from ..utils.iupac import reverse_comp
 from ..utils.log import ProgressReporter, timestamp
 
 USAGE = """Usage: primer_match [options]
@@ -214,17 +216,9 @@ def load_patterns(opts):
 
 
 
-def _not_ported(why: str):
-    sys.stderr.write("primer_match: " + why + "\n")
-    raise SystemExit(1)
-
-
 def run(opts, out) -> None:
     """The JAX app's main loop (reference primer_match.cc structure,
     verbose stderr protocol included) over the port's model."""
-    if opts["translate"]:
-        _not_ported("-T (peptide patterns against the 6-frame translation) "
-                    "is not ported yet (ROADMAP queue 1 item 9)")
     v = opts["verbose"]
     if v:
         timestamp("Release Tag: $Name:  $")
@@ -261,8 +255,15 @@ def run(opts, out) -> None:
     if v:
         for line in db_pick_report(db, opts["memmap"]):
             timestamp(line)
+    # -T: peptide patterns against the 6-frame translation
+    # (primer_match.cc:229-230 option, :1026-1031 reversed patterns,
+    # :1161-1232 frame + coordinate math).  The reference requires a
+    # normalized database for translation (select.t:163-164); the
+    # translated flat AA space comes from io/translate.py, shared with
+    # peptide_scan.
+    tdb = translate_db(db, all_frames=True) if opts["translate"] else None
     model = PrimerMatchModel(
-        db,
+        tdb.aa_db if tdb is not None else db,
         ps,
         k=opts["k"],
         indels=opts["indels"],
@@ -300,7 +301,55 @@ def run(opts, out) -> None:
             continue
         rc = pid > n
         ind = pid - (n if rc else 0)
-        if opts["alignments"]:
+        if opts["alignments"] and tdb is not None:
+            # translated coordinates (primer_match.cc:1160-1232): map the
+            # AA end position to bases, frame = base seq pos % 3 + 1
+            # (negated for reversed patterns), seq coords in AA units,
+            # %n = the matched DNA codons (revcomp'd for R)
+            bp, _f0 = tdb.getbasepos(a.end)
+            spe = int(db.get_seq_pos(bp))
+            frame = spe % 3 + 1
+            spe = spe // 3
+            sps = spe - a.length + 1
+            pe = a.end
+            pstart = pe - a.length + 1
+            pat = ps.pattern(pid)
+            header = db.get_header_data(bp)
+            entry_idx = int(db.entry_of(bp)) + 1
+            bps, _f1 = tdb.getbasepos(pstart)
+            buffer = tdb.base_decode(bps, (a.length - 1) * 3)
+            if rc:
+                rec = AlignRecord(
+                    s=sps, e=spe, five=spe, three=sps, S=pstart, E=pe,
+                    i=ind, d=ed, p=ps.pattern(ind),
+                    P=deflines[ind - 1] if deflines else "",
+                    q=pat[::-1], Q=a.alignment_pattern(pat)[::-1],
+                    r="R", R=" REVSTRAND",
+                    t=a.matching_text[::-1], T=a.alignment_text()[::-1],
+                    A=a.alignment_string()[::-1],
+                    h=header,
+                    H=header.split()[0] if header.split() else "",
+                    f=entry_idx,
+                    sts=sts[(ind + 1) // 2 - 1] if sts else null_sts,
+                    frame=-frame, buffer=reverse_comp(buffer),
+                )
+            else:
+                rec = AlignRecord(
+                    s=sps, e=spe, five=sps, three=spe, S=pstart, E=pe,
+                    i=ind, d=ed, p=ps.pattern(ind),
+                    P=deflines[ind - 1] if deflines else "",
+                    q=pat, Q=a.alignment_pattern(pat),
+                    r="F", R="",
+                    t=a.matching_text, T=a.alignment_text(),
+                    A=a.alignment_string(),
+                    h=header,
+                    H=header.split()[0] if header.split() else "",
+                    f=entry_idx,
+                    sts=sts[(ind + 1) // 2 - 1] if sts else null_sts,
+                    frame=frame, buffer=buffer,
+                )
+            out.write(alignformat(opts["alignformat"], rec))
+        elif opts["alignments"]:
             p = a.end
             spe = int(model.db.get_seq_pos(p))
             sps = spe - a.length + 1

@@ -447,7 +447,7 @@ class PrimerMatchModel:
                 _o, _s, scanner, _b, dirs, ext_pats, geomB = \
                     self._bases_ctx()
                 emit = self._bases_emit
-            if not scanner.gated_available(len(codes)):
+            if not self._gated(scanner, len(codes)):
                 for _ in range(reps):
                     yield list(self.engine_hits())
                 return
@@ -607,7 +607,7 @@ class PrimerMatchModel:
         seed id; ``hid_of`` maps the scanner's 0-based pattern index to
         that id."""
         codes = self.db.codes
-        if scanner.gated_available(len(codes)):
+        if self._gated(scanner, len(codes)):
             gate = self._engine_gate(scanner, dirs, ext_pats, geomB, hid_of)
             anchors, sids0 = scanner.scan_gated(codes, gate, self.indels,
                                                 self.k)
@@ -615,7 +615,8 @@ class PrimerMatchModel:
         if scanner.census_on_device():
             gates = ({"ext_gate": ExtendGate(self._engine_gate(
                 scanner, dirs, ext_pats, geomB, hid_of), self.indels)}
-                if scanner.gate_alphabet_ok() else {})
+                if scanner.gate_alphabet_ok() and self._gate_faithful()
+                else {})
         else:
             gates = {"gate": self._census_gate(scanner, dirs, ext_pats,
                                                hid_of)}
@@ -675,6 +676,18 @@ class PrimerMatchModel:
         return spec
 
     _gate_cache = None
+
+    def _gate_faithful(self) -> bool:
+        """Whether the extension gate's accept tables, built by comparing
+        characters, hold the extension's matches: not over a mapped
+        database (``decode_chars``, the amino-acid maps of ``-M 2`` and
+        ``-M 3``), whose codes stand for more than their table
+        characters."""
+        return getattr(self.db, "decode_chars", None) is None
+
+    def _gated(self, scanner, n: int) -> bool:
+        """Whether a pigeonhole engine takes ``scanner.scan_gated``."""
+        return scanner.gated_available(n) and self._gate_faithful()
 
     def _engine_gate(self, scanner, dirs, ext_pats, geomB, hid_of):
         """Extension :class:`GateTables` of a pigeonhole engine, indexed

@@ -128,9 +128,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.sat_gate_slots.argtypes = [
             vp, i64,            # codes, n
             vp, i64,            # slots, cap_in
-            vp,                 # lengths
-            vp, vp, vp,         # gate bits, glen, gdir
-            i32, i32, i32, i32,  # Lg, k, band, indels
+            vp, vp,             # seed records, gate bits
+            i32, i32, i32,      # Lg, k, band (0 without indels)
             vp, i64,            # out, cap
             vp,                 # stream
         ]

@@ -43,9 +43,11 @@
 //     they are few (PERF.md section 6 has the layouts' times);
 //   - pushes each hit (anchor, seed) into a per-warp queue in shared
 //     memory (a ballot and a popcount prefix), and runs the gate DP
-//     (gate.cuh) 32 queued hits at a time, one per lane; the window is read
-//     from the staged text where it lies inside it (the microblock's text
-//     with a margin of Lg + band on each side), else through __ldg;
+//     (gate.cuh; one kernel instance per band, so only that band's row
+//     sits in the loop) 32 queued hits at a time, one per lane; the window
+//     is read from the staged text where it lies inside it (the
+//     microblock's text with a margin of Lg + band on each side), else
+//     through __ldg;
 //   - sends survivors out with warp-aggregated slots (slot_out.cuh).
 
 #include <cstdint>
@@ -241,7 +243,7 @@ struct StagedText {
   }
 };
 
-template <bool kDirect>
+template <bool kDirect, int B>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n, int eos,
                  const uint32_t* __restrict__ bits, int R,
@@ -253,9 +255,9 @@ seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n, int eos,
                  const int64_t* __restrict__ mb_idx, int64_t cap_mb,
                  const int32_t* __restrict__ gbits,
                  const int32_t* __restrict__ glen,
-                 const int32_t* __restrict__ gdir, int Lg, int k, int band,
-                 int indels, int gate_words, Geometry geo,
-                 int32_t* __restrict__ out, int64_t cap) {
+                 const int32_t* __restrict__ gdir, int Lg, int k,
+                 int gate_words, Geometry geo, int32_t* __restrict__ out,
+                 int64_t cap) {
   // shared layout: [gate bits][row bitsets][per warp: masks, queue, t0,
   // text]
   extern __shared__ __align__(16) unsigned char smem[];
@@ -282,7 +284,7 @@ seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n, int eos,
   __syncthreads();  // the only block-wide barrier: warps run on their own
 
   const Gate g{gate_words ? gbits_s : gbits, glen, gdir, Lg, k,
-               band, indels != 0, gate_words != 0};
+               gate_words != 0};
   int64_t live = *mb_count;
   if (live > cap_mb) live = cap_mb;
   const int64_t ntiles = (live + kMb - 1) / kMb;
@@ -307,7 +309,7 @@ seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n, int eos,
           sl >= 0 ? txt + sl * geo.spanp : nullptr,
           sl >= 0 ? static_cast<int64_t>(t0s[sl]) - geo.E : 0, span, codes,
           n};
-      if (gate_ok(text, a, s, g)) sat::emit_pair(out, cap, a, s);
+      if (gate_ok<B>(text, a, s, g)) sat::emit_pair(out, cap, a, s);
     }
     __syncwarp();
   };
@@ -410,16 +412,16 @@ seed_gate_kernel(const uint8_t* __restrict__ codes, int64_t n, int eos,
   if (qn > 0) flush(qn);
 }
 
-LaunchCache g_launch[2];
+LaunchCache g_launch[2][kMaxBand + 1];
 
-template <bool kDirect>
+template <bool kDirect, int B>
 cudaError_t launch(const uint8_t* codes, int64_t n, int eos,
                    const uint32_t* bits, int R, const uint2* ent,
                    const int2* pat, int P, int J, const int32_t* cls_off,
                    const int32_t* cls_rows, const int32_t* lengths, int Lmax,
                    const int64_t* mb_count, const int64_t* mb_idx,
                    int64_t cap_mb, const int32_t* gbits, const int32_t* glen,
-                   const int32_t* gdir, int Lg, int k, int band, int indels,
+                   const int32_t* gdir, int Lg, int k, int band,
                    int32_t* out, int64_t cap, cudaStream_t stream) {
   const int64_t gate_bytes = static_cast<int64_t>(P) * Lg * 4;
   const int gate_words =
@@ -430,18 +432,34 @@ cudaError_t launch(const uint8_t* codes, int64_t n, int eos,
   const int threads = geo.warps * 32;
   int64_t grid = 0;
   const cudaError_t err =
-      full_grid(seed_gate_kernel<kDirect>, threads, geo.smem,
-                g_launch[kDirect ? 1 : 0], &grid);
+      full_grid(seed_gate_kernel<kDirect, B>, threads, geo.smem,
+                g_launch[kDirect ? 1 : 0][B], &grid);
   if (err != cudaSuccess) return err;
   const int64_t ntiles = (cap_mb + kMb - 1) / kMb;
   const int64_t need = (ntiles + geo.warps - 1) / geo.warps;
   if (grid > need) grid = need;
-  seed_gate_kernel<kDirect>
+  seed_gate_kernel<kDirect, B>
       <<<static_cast<unsigned>(grid), threads, geo.smem, stream>>>(
           codes, n, eos, bits, R, ent, pat, P, J, cls_off, cls_rows, lengths,
-          mb_count, mb_idx, cap_mb, gbits, glen, gdir, Lg, k, band, indels,
-          gate_words, geo, out, cap);
+          mb_count, mb_idx, cap_mb, gbits, glen, gdir, Lg, k, gate_words,
+          geo, out, cap);
   return cudaGetLastError();
+}
+
+// The instance of the gate's band: the band with indels, 0 without.
+template <bool kDirect, class... Args>
+cudaError_t launch_band(int b, Args... args) {
+  switch (b) {
+    case 0: return launch<kDirect, 0>(args...);
+    case 1: return launch<kDirect, 1>(args...);
+    case 2: return launch<kDirect, 2>(args...);
+    case 3: return launch<kDirect, 3>(args...);
+    case 4: return launch<kDirect, 4>(args...);
+    case 5: return launch<kDirect, 5>(args...);
+    case 6: return launch<kDirect, 6>(args...);
+    case 7: return launch<kDirect, 7>(args...);
+    default: return launch<kDirect, 8>(args...);
+  }
 }
 
 }  // namespace
@@ -487,12 +505,13 @@ extern "C" int sat_seed_gate(const void* codes, int64_t n, int eos,
   const auto gl = static_cast<const int32_t*>(glen);
   const auto gd = static_cast<const int32_t*>(gdir);
   const auto o = static_cast<int32_t*>(out);
+  const int gb_band = indels ? band : 0;
   const cudaError_t err =
-      direct ? launch<true>(c, n, eos, b, R, e, pt, P, J, co, cr, ln, Lmax,
-                            mc, mx, cap_mb, gb, gl, gd, Lg, k, band, indels,
-                            o, cap, s)
-             : launch<false>(c, n, eos, b, R, e, pt, P, J, co, cr, ln, Lmax,
-                             mc, mx, cap_mb, gb, gl, gd, Lg, k, band, indels,
-                             o, cap, s);
+      direct ? launch_band<true>(gb_band, c, n, eos, b, R, e, pt, P, J, co,
+                                 cr, ln, Lmax, mc, mx, cap_mb, gb, gl, gd,
+                                 Lg, k, band, o, cap, s)
+             : launch_band<false>(gb_band, c, n, eos, b, R, e, pt, P, J, co,
+                                  cr, ln, Lmax, mc, mx, cap_mb, gb, gl, gd,
+                                  Lg, k, band, o, cap, s);
   return static_cast<int>(err);
 }

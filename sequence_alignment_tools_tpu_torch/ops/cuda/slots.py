@@ -24,6 +24,8 @@ start is named.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -39,6 +41,9 @@ GOLD = 0x9E3779B97F4A7C15
 # the presence filter: about 16 bits a key, 2^10 to 2^20 bits (at most
 # 128 KB of the kernel's shared memory)
 _FILTER_BITS = (10, 20)
+# accept words of the first rows in a seed's gate record (gate_slots.cu)
+REC_ROWS = 5
+_REC_CACHE: dict = {}
 
 
 def presence_filter(keys: np.ndarray) -> tuple[np.ndarray, int]:
@@ -265,6 +270,30 @@ def gate_slots_ref(codes: torch.Tensor, n: int, slots: torch.Tensor,
     return _row(anchors[ok], sids[ok], cap)
 
 
+def seed_records(lengths: torch.Tensor, gt) -> torch.Tensor:
+    """The gate kernel's per-seed records: int32 [S, 8] on ``gt``'s
+    device, row s = (seed length, glen, gdir, the accept words of
+    extension rows 1 to :data:`REC_ROWS`, 0 past ``Lg``), 32 bytes a seed,
+    so one aligned sector holds all a slot needs to start its gate.  Built
+    once per pair of tensors (kept while both live)."""
+    key = (id(lengths), id(gt.bits))
+    hit = _REC_CACHE.get(key)
+    if hit is not None and hit[0]() is lengths and hit[1]() is gt.bits:
+        return hit[2]
+    S = lengths.numel()
+    rec = torch.zeros((S, 8), dtype=torch.int32, device=gt.bits.device)
+    rec[:, 0] = lengths
+    rec[:, 1] = gt.glen
+    rec[:, 2] = gt.gdir
+    rows = min(REC_ROWS, gt.Lg)
+    rec[:, 3 : 3 + rows] = gt.bits[:, :rows]
+    for k in [k for k, v in _REC_CACHE.items()
+              if v[0]() is None or v[1]() is None]:
+        del _REC_CACHE[k]
+    _REC_CACHE[key] = (weakref.ref(lengths), weakref.ref(gt.bits), rec)
+    return rec
+
+
 def gate_slots(codes: torch.Tensor, n: int, slots: torch.Tensor,
                lengths: torch.Tensor, gt, indels: bool,
                cap: int) -> torch.Tensor:
@@ -276,8 +305,10 @@ def gate_slots(codes: torch.Tensor, n: int, slots: torch.Tensor,
     ``codes`` uint8 [>= n]; ``slots`` the row of :func:`scan_slots` (its
     count is read on the device); ``lengths`` [S] int32 seed lengths;
     ``gt`` a :class:`..gate.GateTables` on the same device.  On a CUDA
-    tensor this launches ``csrc/gate_slots.cu`` on the current stream and
-    counts the launch in ``gate_slots.launches``; on a CPU tensor it is
+    tensor this launches ``csrc/gate_slots.cu`` on the current stream
+    (its instance for the band, ``gt.band`` with indels and 0 without,
+    over :func:`seed_records`) and counts the launch in
+    ``gate_slots.launches``; on a CPU tensor it is
     :func:`gate_slots_ref`."""
     if codes.device.type == "cpu":
         return gate_slots_ref(codes, n, slots, lengths, gt, indels, cap)
@@ -301,15 +332,15 @@ def gate_slots(codes: torch.Tensor, n: int, slots: torch.Tensor,
                          f"kernel's {MAX_BAND}")
     from . import build
 
+    rec = seed_records(lengths, gt)
     lib = build.library("gate_slots")
     out = torch.empty(1 + 2 * cap, dtype=torch.int32, device=codes.device)
     out[0] = 0
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.sat_gate_slots(
-            codes.data_ptr(), n, slots.data_ptr(), cap_in,
-            lengths.data_ptr(), gt.bits.data_ptr(), gt.glen.data_ptr(),
-            gt.gdir.data_ptr(), gt.Lg, gt.k, gt.band, int(indels),
+            codes.data_ptr(), n, slots.data_ptr(), cap_in, rec.data_ptr(),
+            gt.bits.data_ptr(), gt.Lg, gt.k, gt.band if indels else 0,
             out.data_ptr(), cap, stream)
     if rc != 0:
         raise RuntimeError(f"gate_slots launch failed: cudaError_t {rc}")

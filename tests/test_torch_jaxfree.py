@@ -7,8 +7,9 @@ reports whether jax or any module of the JAX package
 (``sequence_alignment_tools_tpu`` or ``sequence_alignment_tools_tpu.*``)
 was imported, for exact search, for ``-k 1`` (the gated seed scan and the
 native extension) and for the filter engine (``-k 2``: the Myers scan and
-the cluster verify; ``-K 2``: the poisoned k-mismatch scan); a source
-scan checks every file of the package, ``chip_smoke.py`` and
+the cluster verify; ``-K 2``: the poisoned k-mismatch scan), and for
+peptide_scan and ``primer_match -T`` (the six-frame translation); a
+source scan checks every file of the package, ``chip_smoke.py`` and
 ``kernel_probe.py``.
 """
 
@@ -112,6 +113,41 @@ def test_sitless_pcr_match_never_imports_jax(tmp_path, flags):
     assert r.stdout.decode() == want.getvalue()
 
 
+@pytest.mark.parametrize("tool,flags", [("peptide_scan", ["-T", "A"]),
+                                        ("peptide_scan", ["-K", "1"]),
+                                        ("primer_match", ["-T", "-r"])],
+                         ids=["peptide-6frame", "peptide-protein",
+                              "primer-translate"])
+def test_sitless_translated_tools_never_import_jax(tmp_path, tool, flags):
+    from sequence_alignment_tools_tpu.apps import peptide_scan as jax_pep
+    from sequence_alignment_tools_tpu.apps.compress_seq import main as cs
+
+    protein = "-T" not in flags
+    fasta = str(tmp_path / "db.fasta")
+    text = make_synthetic_fasta(
+        fasta, total=12_000, seed=9,
+        alphabet="ACDEFGHIKLMNPQRSTVWY" if protein else "ACGT")
+    assert cs(["-i", fasta, "-n", "true"]) == 0
+    peps = [text[500:509], text[7_000:7_008]] if protein else \
+        ["MKTAYIAK", "GGIEDELK"]
+    argv = ["-i", fasta, "-p", " ".join(peps)] + flags
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env.update(SAT_DEVICE="cpu", SAT_HOST_SCAN="0")
+    r = subprocess.run(
+        [sys.executable, "-S", "-c", BOOT, str(REPO), tool] + argv,
+        capture_output=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr.decode()[-1500:]
+    assert b"jax_imported=False jax_package_imported=False" in r.stderr, \
+        r.stderr.decode()[-1500:]
+    app = jax_pep if tool == "peptide_scan" else jax_app
+    want = io.StringIO()
+    app.run(app.parse_args(argv), want)
+    if protein:
+        assert want.getvalue().count("\n") >= 2
+    assert r.stdout.decode() == want.getvalue()
+
+
 # an import of the JAX package: a module path that starts with its name
 # and does not go on with "_torch"
 JAX_PKG_IMPORT = re.compile(
@@ -124,7 +160,8 @@ def test_no_file_imports_jax():
                                          REPO / "kernel_probe.py"]
     assert len(files) >= 12
     for mod in ("ops/cuda/slots.py", "ops/gapped_seeds.py",
-                "models/pcr_match.py", "apps/pcr_match.py"):
+                "models/pcr_match.py", "apps/pcr_match.py",
+                "io/translate.py", "apps/peptide_scan.py"):
         assert PKG / mod in files
     for f in files:
         text = f.read_text()

@@ -356,3 +356,49 @@ def test_cuda_census_shapes():
                 assert int(got[0]) == int(one[0]) == int(want[0]) > 0
                 assert pairs(got.cpu()) == pairs(want.cpu())
                 assert set(pairs(one.cpu())) <= set(pairs(want.cpu()))
+
+
+@pytest.mark.cuda
+def test_cuda_gate_slots_every_band():
+    """Every compiled instance of the slot gate (the mismatch count, and
+    the banded DP at bands 1 to 8) against the plain version on a slot
+    list of many batches: 64 random 5-base seeds over 2^17 positions with
+    EOS every 5,000 bases, extensions of 4 to 14 bases both ways, slots
+    at both text ends; at a full cap and at cap 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(29)
+    n = 1 << 17
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    codes[::5000] = EOS
+    seeds = ["".join("ACGT"[c] for c in rng.integers(0, 4, size=5))
+             for _ in range(64)]
+    # the lmatch seed 0 at the end, the rmatch seed 1 at the start: their
+    # windows reach past the text's ends
+    for at, s in ((0, seeds[1]), (n - 5, seeds[0])):
+        codes[at : at + 5] = [TABLE.index(c.encode()) for c in s]
+    db = SeqDB(codes=codes, table=TABLE, entry_starts=np.array([0]),
+               entry_lengths=np.array([n]), headers=["e1"])
+    exts = ["".join("ACGT"[c] for c in rng.integers(0, 4, size=ln))
+            for ln in rng.integers(4, 15, size=64)]
+    exts[0], exts[1] = seeds[0][-1] * 6, seeds[1][0] * 6
+    dirs = np.asarray([1, -1] * 32, np.int32)
+    offs = np.where(dirs > 0, 0, 5).astype(np.int32)
+    sc = ConvScanner(seed_tables(db, seeds), k=0, device="cuda")
+    mt = sc._mer_dev()
+    dev = torch.from_numpy(codes).cuda()
+    slots = scan_slots(dev, n, mt, 1 << 16)
+    torch.cuda.synchronize()
+    assert 5_000 < int(slots[0]) < 1 << 16
+    for k, indels in [(k, True) for k in range(1, 9)] + [(1, False),
+                                                         (3, False)]:
+        gt = GateTables.from_seed_meta(db, exts, dirs, offs, k,
+                                       k if indels else 0, False,
+                                       False).to("cuda")
+        want = gate_slots_ref(dev, n, slots, mt.lengths, gt, indels, 1 << 16)
+        got = gate_slots(dev, n, slots, mt.lengths, gt, indels, 1 << 16)
+        one = gate_slots(dev, n, slots, mt.lengths, gt, indels, 1)
+        torch.cuda.synchronize()
+        assert int(got[0]) == int(one[0]) == int(want[0]) > 0, (k, indels)
+        assert pairs(got.cpu()) == pairs(want.cpu()), (k, indels)
+        assert set(pairs(one.cpu())) <= set(pairs(want.cpu()))
