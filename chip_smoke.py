@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from this checkout, holds each against its
 plain PyTorch version, then drives the port's main paths (exact, k = 1,
 k = 2 and ``-K 2`` primer_match, both strands; the 50,000-pattern exact
 batch and its k = 1 halves run; pcr_match; peptides over the six-frame
-translation) at full size and checks their output:
+translation; every other tool that reaches a scanner, through the CLI)
+at full size and checks their output:
 
 1. card: name and power limit, kernel build time;
 2. kernel against plain: ``scan_occupancy`` on the card equals
@@ -53,8 +54,10 @@ translation) at full size and checks their output:
    100 bases at k = 1, 2, 4, without indels, and degenerate primers over
    an IUPAC database under ``-w``; patterns of about 3,200 and about
    7,400 bases, about 100 and 232 words, all but the first in device
-   scratch), both also at cap 1 (the overflow); the older commit's
-   Sellers kernel timed beside the long-pattern shapes;
+   scratch), and allvall ``-r``'s chunk (2,048 query 20-mers and their
+   reverse complements, P = 4,096, k = 1 with indels, over 2^20), both
+   also at cap 1 (the overflow); the older commit's Sellers kernel timed
+   beside the long-pattern shapes;
 9. the k = 2 main path: ``PrimerMatchModel(k=2, indels=True)`` (the
    filter engine, Myers route) over the resident 2^28 database, engine
    hits equal to the host route's (the native Sellers rows), every exact,
@@ -104,7 +107,36 @@ translation) at full size and checks their output:
     ``pcr_match -r -M 2000`` at k = 0 and ``-k 1``; on a normalized copy
     of the corpus ``peptide_scan -T A``, ``-T A -K 1`` and ``primer_match
     -T -r`` over 10 peptides of its translation; device bytes equal to
-    host bytes.
+    host bytes;
+16. the tools of the scanners' paths through the CLI, each device run
+    (``SAT_HOST_SCAN=0``, under ``torch.profiler`` for the device's share
+    of its wall) against a host run (:func:`host_route`): on the 2^24
+    corpus ``exact_match -r``, ``-r -q``, ``-k`` and ``inexact_match -k 0
+    -q`` (the filter), ``-k 1 -q``, ``-k 2 -q`` and the long primers at
+    ``-k 2 -q`` (Sellers, against the native Sellers rows), and ``-k 1
+    -r`` on a 250,000-base corpus (without ``-q`` each alignment spans
+    the text up to its hit); ``tandem_match -r`` on the first entry with
+    tandem arrays planted; ``allvall -m 20 -r`` at ``-K 1`` (the
+    pattern-blocked filter) and ``-k 1`` (Sellers at P = 4,096) of a
+    4,096-base query against the first entry, against the native machines
+    over pattern groups; then of a 2^16-base query against the corpus
+    (plants exact, with a substitution, a deletion, reverse complemented)
+    at k = 0 (the census, against the CPU route), ``-K 1`` and ``-k 1``
+    (timed: their marks must hold the plants and nest, k = 0 within ``-K
+    1`` within ``-k 1``), then ``allvall_merge`` and ``allvall_dump`` on
+    the bitmaps; ``merstream -m 20 -R -K 1 -b 50000 -r`` on a normalized
+    2^18-base database (the census and the slot gate, against the CPU
+    route);
+17. nrdb over 2^18 synthetic proteins of 50 to 1,000 residues (5%
+    duplicates, 5% contained), ``nrdb`` against the CPU route and ``nrdb
+    -C`` timed (the duplicates and contained entries dropped, its
+    sequences among nrdb's), the census launched, the device run split
+    into load, scan, extension loop and output write; ``xmers -m 20 -R -k
+    1 -b 50000`` at full batch width (100,000 patterns a batch; 2^18
+    bases, cut from 2^20 to fit) against the CPU route, with phase 0,
+    each batch's table build and gated scan timed, one upload of the
+    database, no process left behind and the device memory back to its
+    level before the run.
 
 Every phase raises on a mismatch.  The line before the last is a JSON
 object with each kernel's launches on its main path, error, times and
@@ -141,6 +173,13 @@ BLOCK_N = 1 << 24         # the serving block and the kernel check size
 ENTRY = 2_000_000         # bases per database entry, as bench.py's corpus
 KEDIT_N = 1 << 22         # the k-edit kernel check size
 SELLERS_N = 1 << 26       # the Sellers-route configuration's database
+XMERS_CLI_N = 1 << 18     # merstream through the CLI (phase 16)
+# xmers at full batch width (phase 17): 2^20 bases took 244 s on the
+# card and 231 s on the host route, past the 120 s the phase may take,
+# so the database is halved twice (PERF.md section 4)
+XMERS_FULL_N = 1 << 18
+NRDB_ENTRIES = 1 << 18    # nrdb's proteins, Swiss-Prot's order (phase 17)
+ALLVALL_QUERY_N = 1 << 16  # allvall's query against the 2^24 corpus
 # 24 long primers (32 to 40 bases): the Myers kernel takes no field past
 # 31 bases, so the filter engine takes the Sellers kernel for them
 _LRNG = np.random.default_rng(SEED + 7)
@@ -575,27 +614,11 @@ def device_route_vs_host(name, tables, codes, dev):
         f"host shift-and, scan_occupancy launches {launches}")
 
 
-def profile(label, fn, reps):
-    """Print ``fn``'s device self time per kernel under torch.profiler
-    (``reps`` calls), with the host wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
-
-    fn()
-    torch.cuda.synchronize()
-    # keep every event of the window (without it, torch may drop the
-    # events of earlier cycles from key_averages)
-    keep = ({"acc_events": True}
-            if "acc_events" in inspect.signature(tprofile).parameters
-            else {})
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA], **keep) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+def device_rows(prof, reps=1):
+    """A profile's rows with device time, as (ms per rep, launches per
+    rep, key, ms each) largest first, and the device ms per rep of its
+    kernels and copies (the aten:: rows repeat the device time of the
+    kernels they launch)."""
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -605,10 +628,20 @@ def profile(label, fn, reps):
             rows.append((us / 1e3 / reps, ev.count / reps, ev.key,
                          us / 1e3 / ev.count))
     rows.sort(reverse=True)
-    # the aten:: rows repeat the device time of the kernels they launch
     dev_ms = sum(ms for ms, _, key, _ in rows
                  if not key.startswith("aten::")
                  and key != "Activity Buffer Request")
+    return rows, dev_ms
+
+
+def profile(label, fn, reps):
+    """Print ``fn``'s device self time per kernel under torch.profiler
+    (``reps`` calls), with the host wall time."""
+    fn()
+    _out, wall, prof, _t0 = device_busy(
+        lambda: [fn() for _ in range(reps)])
+    wall *= 1e3
+    rows, dev_ms = device_rows(prof, reps)
     log(f"== profile {label}: {reps} reps, wall {wall / reps:.3f} ms/rep, "
         f"device time {dev_ms:.3f} ms/rep (kernels and copies, "
         f"{100 * dev_ms * reps / wall:.1f}% of wall)")
@@ -783,39 +816,58 @@ def check_kedit(cases):
     return worst
 
 
-def split_host_pairs(tables, k, codes):
-    """The native Sellers rows (``HostSellers``) over groups of patterns
-    that each fit the native machine (at most 24 x 64 pattern bits), the
-    candidate sets merged: the host route for a pattern set too wide for
-    one machine.  Returns (ends, pids) like ``SellersScanner.host_pairs``."""
-    from sequence_alignment_tools_tpu_torch.ops.host_scan import HostSellers
+def native_groups(tables, bits, scan):
+    """``scan(sub, idx)`` over consecutive groups of the patterns of
+    ``tables`` whose lengths sum to at most ``bits`` (each group fits one
+    native machine; ``sub`` its tables, ``idx`` its pattern indices), on
+    8 threads (the native calls release the GIL); the results in group
+    order."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from sequence_alignment_tools_tpu_torch.ops.tables import PatternTables
 
-    groups, cur, bits = [], [], 0
+    groups, cur, used = [], [], 0
     for p in range(tables.P):
         ln = int(tables.lengths[p])
-        if cur and bits + ln > 24 * 64:
-            groups.append(cur)
-            cur, bits = [], 0
+        if cur and used + ln > bits:
+            groups.append(np.asarray(cur))
+            cur, used = [], 0
         cur.append(p)
-        bits += ln
-    groups.append(cur)
-    ends_l, pids_l = [], []
-    for g in groups:
-        idx = np.asarray(g)
+        used += ln
+    if cur:
+        groups.append(np.asarray(cur))
+
+    def one(idx):
         sub = PatternTables(match=tables.match[idx],
                             lengths=tables.lengths[idx],
                             pat_codes=tables.pat_codes[idx],
                             Lmax=tables.Lmax, alpha=tables.alpha,
                             eos_code=tables.eos_code,
                             code_chars=tables.code_chars)
+        return scan(sub, idx)
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, groups))
+
+
+def split_host_pairs(tables, k, codes):
+    """The native Sellers rows (``HostSellers``) over groups of patterns
+    that each fit the native machine (at most 24 x 64 pattern bits), the
+    candidate sets merged: the host route for a pattern set too wide for
+    one machine.  Returns (ends, pids, distances) like
+    ``HostSellers.pairs``."""
+    from sequence_alignment_tools_tpu_torch.ops.host_scan import HostSellers
+
+    def one(sub, idx):
         hs = HostSellers(sub, k)
         if not hs.available():
             raise RuntimeError("native Sellers rows unavailable")
-        e, pl, _d = hs.pairs(np.asarray(codes))
-        ends_l.append(e)
-        pids_l.append(idx[pl])
-    return np.concatenate(ends_l), np.concatenate(pids_l).astype(np.int64)
+        e, pl, d = hs.pairs(np.asarray(codes))
+        return e, idx[pl], d
+
+    ends, pids, dists = zip(*native_groups(tables, 24 * 64, one))
+    return (np.concatenate(ends), np.concatenate(pids).astype(np.int64),
+            np.concatenate(dists))
 
 
 @contextlib.contextmanager
@@ -827,7 +879,7 @@ def split_host_route():
     saved = (SellersScanner._host_eligible, SellersScanner.host_pairs)
     SellersScanner._host_eligible = lambda self, n: True
     SellersScanner.host_pairs = lambda self, codes: split_host_pairs(
-        self.tables, self.k, codes)
+        self.tables, self.k, codes)[:2]
     try:
         yield
     finally:
@@ -930,33 +982,24 @@ def prefix_db(db, n):
                  headers=list(db.headers[: int(keep.sum())]))
 
 
-def grouped_host_scan(tables, codes, bits=4096):
-    """The native shift-and over groups of patterns that each fit its
-    state (``bits``), merged to (window start, pattern) order: the host
-    reference for a pattern set too wide for one machine."""
+def grouped_host_scan(tables, codes, k=0, poison=False):
+    """The native shift-and (exact, or k mismatches with EOS poisoned as
+    ``poison``) over groups of patterns that each fit its 4,096 state
+    bits, merged to (window start, pattern) order: the host reference for
+    a pattern set too wide for one machine.  Returns [(end, pattern,
+    mismatches)]."""
     from sequence_alignment_tools_tpu_torch.ops.host_scan import HostShiftAnd
-    from sequence_alignment_tools_tpu_torch.ops.tables import PatternTables
 
-    out = []
-    p0 = 0
-    while p0 < tables.P:
-        p1 = p0
-        used = 0
-        while p1 < tables.P and used + int(tables.lengths[p1]) <= bits:
-            used += int(tables.lengths[p1])
-            p1 += 1
-        sl = slice(p0, p1)
-        sub = PatternTables(match=tables.match[sl], lengths=tables.lengths[sl],
-                            pat_codes=tables.pat_codes[sl], Lmax=tables.Lmax,
-                            alpha=tables.alpha, eos_code=tables.eos_code,
-                            code_chars=tables.code_chars)
-        host = HostShiftAnd(sub, 0, False)
+    def one(sub, idx):
+        host = HostShiftAnd(sub, k, poison)
         if not host.available():
             raise RuntimeError("native shift-and unavailable")
-        out += [(e - int(sub.lengths[q]), p0 + q, e, m)
+        return [(e - int(sub.lengths[q]), int(idx[q]), e, m)
                 for e, q, m in host.scan(codes)]
-        p0 = p1
-    return [(e, q, m) for _s, q, e, m in sorted(out)]
+
+    out = sorted(h for part in native_groups(tables, 4096, one)
+                 for h in part)
+    return [(e, q, m) for _s, q, e, m in out]
 
 
 def row_keys(row, cap):
@@ -989,15 +1032,615 @@ def check_slots(name, got, want, cap, full):
     return err
 
 
-def run_cli(argv, tool="primer_match"):
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the tools of the scanners' paths through the CLI
+
+KERNEL_NAMES = ("scan_occupancy", "seed_gate", "myers_pairs", "sellers_scan",
+                "scan_slots", "gate_slots")
+
+
+def kernel_fns():
+    """{name: wrapper} of the six kernels (each counts its launches)."""
+    from sequence_alignment_tools_tpu_torch.ops.cuda.myers import myers_pairs
+    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        scan_occupancy,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.seed_gate import (
+        seed_gate,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
+        sellers_scan,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.slots import (
+        gate_slots,
+        scan_slots,
+    )
+
+    return {"scan_occupancy": scan_occupancy, "seed_gate": seed_gate,
+            "myers_pairs": myers_pairs, "sellers_scan": sellers_scan,
+            "scan_slots": scan_slots, "gate_slots": gate_slots}
+
+
+def run_tool(tool, argv, out=None):
+    """The port's ``tool`` run in-process through its dispatcher's entry
+    point: its standard output, or the bytes of its ``-o`` file ``out``
+    (removed first: allvall resumes from an existing bitmap)."""
     import importlib
 
-    main = importlib.import_module(
-        "sequence_alignment_tools_tpu_torch.apps." + tool).main
+    from sequence_alignment_tools_tpu_torch.__main__ import _TOOLS
+
+    mod_name, fn_name = _TOOLS[tool]
+    fn = getattr(importlib.import_module(
+        "sequence_alignment_tools_tpu_torch.apps." + mod_name), fn_name)
+    if out and os.path.exists(out):
+        os.unlink(out)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        main(argv)
-    return buf.getvalue()
+        rc = fn(list(argv))
+    if rc:
+        raise AssertionError(f"{tool} {argv}: exit status {rc}")
+    if out:
+        with open(out, "rb") as f:
+            return f.read()
+    return buf.getvalue().encode("latin-1")
+
+
+def _conv_groups(self, codes):
+    yield from grouped_host_scan(self.tables, codes, self.k, self.poison_eos)
+
+
+def _sellers_groups(self, codes):
+    ends, pids, dists = split_host_pairs(self.tables, self.k, codes)
+    for i in np.lexsort((pids, ends)):
+        yield int(ends[i]), int(pids[i]), int(dists[i])
+
+
+@contextlib.contextmanager
+def host_route(kind):
+    """The reference route of a device run: ``cpu`` runs the tool on the
+    CPU with the host machines on (native shift-and, native census with
+    its inline gate, native extension); ``sellers`` pins the k-edit
+    scanners to the native Sellers rows; ``groups`` runs it on the CPU
+    with every ``ConvScanner.scan`` and ``SellersScanner.scan`` through
+    the native machines over pattern groups (:func:`grouped_host_scan`,
+    :func:`split_host_pairs`), for pattern sets too wide for one
+    machine."""
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools_tpu_torch.ops.sellers import SellersScanner
+
+    saved = os.environ.pop("SAT_DEVICE", None)
+    os.environ.pop("SAT_HOST_SCAN", None)
+    scans = (ConvScanner.scan, SellersScanner.scan)
+    if kind in ("cpu", "groups"):
+        os.environ["SAT_DEVICE"] = "cpu"
+    if kind == "sellers":
+        SellersScanner.use_host = True
+    elif kind == "groups":
+        ConvScanner.scan, SellersScanner.scan = _conv_groups, _sellers_groups
+    try:
+        yield
+    finally:
+        SellersScanner.use_host = None
+        ConvScanner.scan, SellersScanner.scan = scans
+        os.environ.pop("SAT_DEVICE", None)
+        if saved is not None:
+            os.environ["SAT_DEVICE"] = saved
+
+
+def device_vs_host(label, tool, argv, need, host, out=None):
+    """One run of the port's CLI through its device route
+    (``SAT_HOST_SCAN=0``, under :func:`device_busy`) against one through
+    the reference route ``host`` of :func:`host_route`: the same bytes,
+    and every kernel in ``need`` launched.  With ``host`` None the device
+    run is only timed (its callers check its output otherwise).  Returns
+    {out, launches, t0 (the device run's start), wall (s), device_ms,
+    host_s}."""
+    fns = kernel_fns()
+    os.environ["SAT_HOST_SCAN"] = "0"
+    for fn in fns.values():
+        fn.launches = 0
+    try:
+        got, wall, prof, t_dev0 = device_busy(
+            lambda: run_tool(tool, argv, out))
+    finally:
+        del os.environ["SAT_HOST_SCAN"]
+    launches = {name: fn.launches for name, fn in fns.items()}
+    dev_ms = device_rows(prof)[1]
+    missing = [name for name in need if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"{label}: the device run launched no "
+                             f"{missing}: {launches}")
+    s_host = None
+    if host is not None:
+        t0 = time.perf_counter()
+        with host_route(host):
+            want = run_tool(tool, argv, out)
+        s_host = time.perf_counter() - t0
+        if got != want or not got:
+            raise AssertionError(f"{label}: device and host outputs differ "
+                                 f"({len(got)} against {len(want)} bytes)")
+    elif not got:
+        raise AssertionError(f"{label}: no output")
+    lines = got.count(b"\n")
+    ref = (f"device == host ({host} route), host run {s_host:.3f} s"
+           if host is not None else "device run only (timing)")
+    log(f"{label}: {len(got)} bytes, {lines} lines, {ref}; device run "
+        f"{wall:.3f} s, device time {dev_ms:.3f} ms "
+        f"({100 * dev_ms / 1e3 / wall:.2f}% of wall); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return {"out": got, "launches": launches, "t0": t_dev0, "wall": wall,
+            "device_ms": dev_ms, "host_s": s_host}
+
+
+@contextlib.contextmanager
+def spans(*targets):
+    """Host-clock seconds of every call of each ``(owner, method name)``,
+    collected as {name: [seconds per call]} while the block runs."""
+    took = {name: [] for _owner, name in targets}
+    saved = []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def timed_call(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                took[_name].append(time.perf_counter() - t0)
+
+        setattr(owner, name, timed_call)
+    try:
+        yield took
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def device_busy(fn):
+    """(result, wall s, profile, start) of ``fn()`` under
+    ``torch.profiler`` (:func:`device_rows` reads the device time off the
+    profile), and the host clock at its start."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    # keep every event of the window (without it, torch may drop the
+    # events of earlier cycles from key_averages)
+    keep = ({"acc_events": True}
+            if "acc_events" in inspect.signature(tprofile).parameters
+            else {})
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA], **keep) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, prof, t0
+
+
+def write_fasta(path, entries, width=60):
+    """``entries`` [(header, sequence bytes)] as FASTA, ``width`` a line."""
+    with open(path, "wb") as f:
+        for head, seq in entries:
+            f.write(b">" + head.encode() + b"\n")
+            f.write(b"\n".join(seq[i:i + width]
+                               for i in range(0, len(seq), width)))
+            f.write(b"\n")
+
+
+def random_dna(rng, n):
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes()
+
+
+def normalized_dna_db(path, n, seed):
+    """A normalized database (``compress_seq -n true``) of ``n`` random
+    bases in 4 entries, with 200 segments of 60 bases copied once more,
+    exact or with one substitution (near-repeats for xmers' inexact
+    phases)."""
+    from sequence_alignment_tools_tpu_torch.apps.compress_seq import (
+        main as compress_seq,
+    )
+
+    rng = np.random.default_rng(seed)
+    seq = bytearray(random_dna(rng, n))
+    for i in range(200):
+        src, dst = rng.integers(0, n - 60, 2)
+        seg = bytearray(seq[src:src + 60])
+        if i % 2:
+            seg[30] = b"ACGT"[(b"ACGT".index(seg[30]) + 1) % 4]
+        seq[dst:dst + 60] = seg
+    q = n // 4
+    write_fasta(path, [(f"x{e} synthetic entry {e}",
+                        bytes(seq[e * q:(e + 1) * q])) for e in range(4)],
+                width=70)
+    if compress_seq(["-i", path, "-n", "true"]):
+        raise RuntimeError("compress_seq failed")
+
+
+def cli_tools_phase(tmp, fasta, pfile, lfile, entry0, smi):
+    """Phase 16: exact_match, tandem_match, inexact_match, allvall (with
+    allvall_merge and allvall_dump) and merstream through the port's CLI,
+    device route against host route."""
+    from sequence_alignment_tools_tpu_torch.apps.allvall import read_bitmap
+    from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
+
+    runs = {}
+    need_f = ["scan_occupancy"]
+    for flags in (["-r"], ["-r", "-q"], ["-k"]):
+        r = device_vs_host(
+            f"CLI exact_match {' '.join(flags)}", "exact_match",
+            ["-i", fasta, "-P", pfile] + flags, need_f, "cpu")
+        runs["exact_match " + " ".join(flags)] = r
+        if r["out"].count(b"\n") < len(PATS):
+            raise AssertionError("exact_match missed planted primers")
+    # tandem arrays planted in the corpus' first entry, forward and
+    # reverse strand: microsatellites (short motifs, dense hits: the
+    # census) and minisatellites (the filter)
+    sets = ({"CAG": 12, "TTAG": 6, "GATA": 5},
+            {"GGGCAGGATGAC": 4, "TGCACACGTGCATTCA": 3})
+    seq = bytearray(entry0.encode())
+    step = len(seq) // 12
+    slot = 1
+    for motifs in sets:
+        for m, copies in motifs.items():
+            for unit in (m, reverse_comp(m)):
+                at = step * slot
+                seq[at:at + len(unit) * copies] = (unit * copies).encode()
+                slot += 1
+    tfasta = os.path.join(tmp, "tandem.fasta")
+    write_fasta(tfasta, [("tandem0 first bench entry, tandem arrays",
+                          bytes(seq))], width=70)
+    for motifs, need in zip(sets, (["scan_slots"], need_f)):
+        label = f"tandem_match -p '{' '.join(motifs)}' -r -c 3 -l 9"
+        r = device_vs_host(
+            "CLI " + label, "tandem_match",
+            ["-i", tfasta, "-p", " ".join(motifs), "-r", "-c", "3", "-l",
+             "9"], need, "cpu")
+        runs[label] = r
+        if r["out"].count(b">") < 2 * len(motifs):
+            raise AssertionError("tandem_match missed planted arrays")
+    # without -q each candidate's alignment window starts at its pattern
+    # id (the reference's quirk, inexact_match.cc:198-200), so its DP
+    # spans the text up to the hit: that run takes a 250,000-base corpus,
+    # and -k 1 -q runs the same scan over the whole corpus
+    small = os.path.join(tmp, "inexact_small.fasta")
+    write_bench_corpus(small, entries=1, entry_len=250_000)
+    for flags, db_file, pf in ((["-k", "0", "-q"], fasta, pfile),
+                               (["-k", "1", "-q"], fasta, pfile),
+                               (["-k", "1", "-r"], small, pfile),
+                               (["-k", "2", "-q"], fasta, pfile),
+                               (["-k", "2", "-q"], fasta, lfile)):
+        need, host = ((need_f, "cpu") if flags[1] == "0"
+                      else (["sellers_scan"], "sellers"))
+        label = (f"CLI inexact_match {' '.join(flags)}"
+                 + (" (long primers)" if pf == lfile else "")
+                 + (" (250,000-base corpus)" if db_file == small else ""))
+        runs[label[4:]] = device_vs_host(
+            label, "inexact_match", ["-i", db_file, "-P", pf] + flags, need,
+            host)
+    # allvall -m 20 -r at k = 0 (the census), -K 1 (the pattern-blocked
+    # filter) and -k 1 (Sellers at P = 4,096).  First a 4,096-base query
+    # (two chunks) against the corpus' first entry, each route against the
+    # native machines over pattern groups; then a 2^16-base query against
+    # the whole corpus, k = 0 against the CPU route and -K 1 / -k 1 timed
+    # (no host machine takes them at that size in the phase's time), their
+    # plants and nesting checked
+    rng = np.random.default_rng(SEED + 16)
+    bg1 = os.path.join(tmp, "entry0.fasta")
+    write_fasta(bg1, [("entry0 first bench entry", entry0.encode())])
+    rq = os.path.join(tmp, "query_ref.fasta")
+    rplants = allvall_query(rq, rng, 4_096, 4, entry0)
+    for flags, need in ((["-r", "-K", "1"], need_f),
+                        (["-r", "-k", "1"], ["sellers_scan"])):
+        bm = os.path.join(tmp, "allvall_ref.bm")
+        label = f"CLI allvall -m 20 {' '.join(flags)} (4,096 x 2,000,000)"
+        runs[label[4:]] = device_vs_host(
+            label, "allvall", ["-i", rq, "-b", bg1, "-m", "20", "-o",
+                               bm] + flags, need, "groups", out=bm)
+        check_allvall_plants(read_bitmap(bm)[0], rplants, flags[1])
+    n_bg = sum(len(line) - 1 for line in open(fasta)
+               if not line.startswith(">"))
+    qfasta = os.path.join(tmp, "query.fasta")
+    qplants = allvall_query(qfasta, rng, ALLVALL_QUERY_N, 16, entry0)
+    bits = {}
+    for flags, need, host in ((["-r"], ["scan_slots"], "cpu"),
+                              (["-r", "-K", "1"], need_f, None),
+                              (["-r", "-k", "1"], ["sellers_scan"], None)):
+        bm = os.path.join(tmp, f"allvall{len(bits)}.bm")
+        label = f"CLI allvall -m 20 {' '.join(flags)}"
+        runs[label[4:]] = device_vs_host(
+            label, "allvall", ["-i", qfasta, "-b", fasta, "-m", "20", "-o",
+                               bm] + flags, need, host, out=bm)
+        bits[" ".join(flags)] = read_bitmap(bm)[0]
+    b0, bK, bk = bits["-r"], bits["-r -K 1"], bits["-r -k 1"]
+    for b, kind in ((b0, "0"), (bK, "-K"), (bk, "-k")):
+        check_allvall_plants(b, qplants, kind)
+    if (b0 & ~bK).any() or (bK & ~bk).any():
+        raise AssertionError("allvall: k = 0 marks not within -K 1's, or "
+                             "-K 1's not within -k 1's")
+    marked = [int(b[21:].sum()) for b in (b0, bK, bk)]
+    if marked[0] > 4_000:
+        raise AssertionError(f"allvall: {marked[0]} exact marks for "
+                             f"{len(qplants)} plants")
+    merged = os.path.join(tmp, "merged.bm")
+    with contextlib.redirect_stderr(io.StringIO()):
+        run_tool("allvall_merge", ["-o", merged, "-A",
+                                   os.path.join(tmp, "allvall0.bm"),
+                                   os.path.join(tmp, "allvall1.bm")])
+    if not (read_bitmap(merged)[0] == bK).all():
+        raise AssertionError("allvall_merge: k = 0 | -K 1 != -K 1")
+    dump = run_tool("allvall_dump", ["-i", qfasta, "-d", merged, "-m",
+                                     "20"])
+    if dump.count(b">") < len(qplants):
+        raise AssertionError("allvall_dump: fewer unset runs than plants")
+    log(f"allvall marks (query {ALLVALL_QUERY_N} against {n_bg}"
+        f" bases, -r): k = 0 {marked[0]}, "
+        f"-K 1 {marked[1]}, -k 1 {marked[2]} of {len(b0) - 21} mers; "
+        f"merge == -K 1; dump {dump.count(b'>')} unset runs")
+    # merstream over a normalized 2^18-base database: xmers' model with a
+    # pattern, -K 1 in batches of 50,000 (the census and the slot gate;
+    # phase 17 runs xmers itself at -k 1)
+    xfasta = os.path.join(tmp, "xmers.fasta")
+    normalized_dna_db(xfasta, XMERS_CLI_N, SEED + 17)
+    xout = os.path.join(tmp, "xmers.txt")
+    xflags = ["-m", "20", "-R", "-K", "1", "-b", "50000", "-r",
+              "AC" + "." * 18]
+    label = f"CLI merstream {' '.join(xflags)} (n={XMERS_CLI_N})"
+    r = device_vs_host(label, "merstream", ["-i", xfasta, "-o", xout] + xflags,
+                       ["scan_slots", "gate_slots"], "cpu", out=xout)
+    runs[label[4:]] = r
+    if r["out"].count(b":") < 10:
+        raise AssertionError("merstream: no phase-2 counts")
+    return runs
+
+
+def allvall_query(path, rng, n, plants, entry0):
+    """An ``n``-base random allvall query with ``plants`` 60-base segments
+    of the corpus' first entry, in turn exact, with one substitution,
+    with one deletion and reverse complemented, written to ``path``.
+    Returns the plants as (start, length, kind)."""
+    from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
+
+    q = bytearray(random_dna(rng, n))
+    e0 = entry0.encode()
+    out = []
+    for i in range(plants):
+        kind = ("exact", "sub", "del", "rc")[i % 4]
+        src = len(e0) // 17 * (i + 1)
+        seg = bytearray(e0[src:src + 60])
+        if kind == "sub":
+            seg[30] = b"ACGT"[(b"ACGT".index(seg[30]) + 1) % 4]
+        elif kind == "del":
+            del seg[30]
+        elif kind == "rc":
+            seg = bytearray(reverse_comp(seg.decode()).encode())
+        at = 1_000 + (n - 2_000) // plants * i
+        q[at:at + len(seg)] = seg
+        out.append((at, len(seg), kind))
+    write_fasta(path, [("query0 allvall query", bytes(q))])
+    return out
+
+
+def check_allvall_plants(bits, plants, k):
+    """Every mer of a plant (one leading EOS; a mer ends at its last base
+    + 1) is marked where its edit is within ``k`` (``0``, ``-K`` one
+    mismatch, ``-k`` one edit); the rest of the query is random against
+    the corpus."""
+    for at, ln, kind in plants:
+        if kind in ("exact", "rc"):
+            ends = list(range(at + 21, at + ln + 2))
+        else:  # the mers wholly on either side of the edit at base 30
+            ends = list(range(at + 21, at + 32)) + list(range(
+                at + ln - 8, at + ln + 2))
+        if not bits[ends].all():
+            raise AssertionError(f"allvall: a {kind} plant at {at} not "
+                                 "marked")
+        if kind == "sub" and k != "0" and not bits[at + 32:at + 52].all():
+            raise AssertionError(f"allvall {k} 1 missed a 1-sub mer")
+        if kind == "del" and k == "-k" and not bits[at + 32:at + 51].all():
+            raise AssertionError("allvall -k 1 missed a 1-deletion mer")
+
+
+def allvall_chunk(query, db, m=20):
+    """The pattern tables of allvall ``-r``'s first chunk over the query
+    bases ``query``: its first 2,048 distinct mers of ``m`` ACGT bases in
+    order of first appearance, then their reverse complements (P =
+    4,096), built against ``db`` as ``apps/allvall.py`` builds them."""
+    from sequence_alignment_tools_tpu_torch.io.patterns import PatternSet
+    from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
+    from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
+
+    mers = list(dict.fromkeys(query[i:i + m]
+                              for i in range(len(query) - m + 1)))[:2048]
+    pats = mers + [reverse_comp(p) for p in mers]
+    ps = PatternSet(patterns=[""] + pats, esb=[0] * (len(pats) + 1),
+                    eeb=[0] * (len(pats) + 1), n_forward=len(pats))
+    return build_tables(ps, db, wc=False, textn=False)
+
+
+def swissprot_like(path, entries, seed):
+    """A protein database of ``entries`` entries of 50 to 1,000 residues
+    (gamma lengths, mean about 360), 5% exact duplicates of an earlier
+    entry and 5% contained in one (a substring of at least 50 residues),
+    normalized.  Returns (residues, duplicates, contained)."""
+    from sequence_alignment_tools_tpu_torch.apps.compress_seq import (
+        main as compress_seq,
+    )
+
+    rng = np.random.default_rng(seed)
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    # UniProt's residue frequencies, roughly: the common residues first
+    freq = np.array([8.3, 1.4, 5.5, 6.8, 3.9, 7.1, 2.3, 5.9, 5.8, 9.7, 2.4,
+                     4.1, 4.7, 3.9, 5.5, 6.6, 5.3, 6.9, 1.1, 2.9])
+    lengths = np.clip(rng.gamma(2.0, 180.0, entries), 50, 1000).astype(
+        np.int64)
+    body = aa[rng.choice(20, int(lengths.sum()), p=freq / freq.sum())]
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    seqs = [body[starts[i]:starts[i + 1]].tobytes() for i in range(entries)]
+    kind = rng.random(entries)
+    dups = conts = 0
+    for i in range(1, entries):
+        j = int(rng.integers(0, i))
+        if kind[i] < 0.05:
+            seqs[i] = seqs[j]
+            dups += 1
+        elif kind[i] < 0.10 and len(seqs[j]) > 60:
+            ln = int(rng.integers(50, len(seqs[j])))
+            at = int(rng.integers(0, len(seqs[j]) - ln + 1))
+            seqs[i] = seqs[j][at:at + ln]
+            conts += 1
+    write_fasta(path, [(f"sp|P{i:06d}|SYN{i} synthetic protein {i}", s)
+                       for i, s in enumerate(seqs)])
+    if compress_seq(["-i", path, "-n", "true"]):
+        raise RuntimeError("compress_seq failed")
+    return sum(map(len, seqs)), dups, conts
+
+
+def scale_phase(tmp, smi):
+    """Phase 17: nrdb at Swiss-Prot scale and xmers at full batch width,
+    device route against host route, with their phases timed."""
+    import multiprocessing
+
+    import torch
+
+    from sequence_alignment_tools_tpu_torch.models.primer_match import (
+        PrimerMatchModel,
+    )
+    from sequence_alignment_tools_tpu_torch.models.xmers import XmersModel
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import (
+        ConvScanner,
+        device_form,
+    )
+
+    report = {}
+    # nrdb: 2^18 proteins, one 6-residue seed each
+    pfasta = os.path.join(tmp, "proteins.fasta")
+    t0 = time.perf_counter()
+    n_res, dups, conts = swissprot_like(pfasta, NRDB_ENTRIES, SEED + 18)
+    log(f"nrdb database: {NRDB_ENTRIES} entries, {n_res} residues, {dups} "
+        f"duplicates and {conts} contained planted; written and normalized "
+        f"in {time.perf_counter() - t0:.3f} s")
+    nout = os.path.join(tmp, "nr.fasta")
+    gen = PrimerMatchModel.engine_hits
+    for flags in ([], ["-C"]):
+        label = f"nrdb {' '.join(flags)}".strip()
+        marks = []
+
+        def engine_hits(self, _gen=gen, _marks=marks):
+            m = {"call": time.perf_counter()}
+            _marks.append(m)
+            for hit in _gen(self):
+                m.setdefault("first", time.perf_counter())
+                yield hit
+            m.setdefault("first", time.perf_counter())
+            m["done"] = time.perf_counter()
+
+        PrimerMatchModel.engine_hits = engine_hits
+        try:
+            # nrdb against the CPU route; nrdb -C (the same scan, more
+            # entries dropped) is timed and its kept count checked
+            r = device_vs_host(
+                f"CLI {label} (n={n_res})", "nrdb",
+                ["-i", pfasta, "-o", nout] + flags, ["scan_slots"],
+                None if flags else "cpu", out=nout)
+        finally:
+            PrimerMatchModel.engine_hits = gen
+        kept = r["out"].count(b">")
+        # a duplicate is dropped; under -C a contained entry too, and the
+        # sequences kept are among nrdb's
+        seqs = {rec.split(b"\n", 1)[1] for rec in r["out"].split(b">")[1:]}
+        if kept != NRDB_ENTRIES - dups - (conts if flags else 0) or (
+                flags and not seqs <= plain_seqs):
+            raise AssertionError(f"{label}: {kept} entries kept")
+        plain_seqs = seqs
+        m = marks[0]  # the device run's
+        split = {"set-up": m["call"] - r["t0"],
+                 "scan": m["first"] - m["call"],
+                 "extension": m["done"] - m["first"],
+                 "output": r["t0"] + r["wall"] - m["done"]}
+        report[label] = dict(r, split=split, kept=kept, out=None)
+        log(f"{label} on {smi}: {kept} of {NRDB_ENTRIES} entries kept; the "
+            f"device run's split: load and seeds {split['set-up']:.3f} s, "
+            f"scan to the first hit {split['scan']:.3f} s, extension loop "
+            f"{split['extension']:.3f} s, output write "
+            f"{split['output']:.3f} s")
+    # xmers at full batch width: -b 50000 with -R, 100,000 patterns a batch
+    xfasta = os.path.join(tmp, "xmers_full.fasta")
+    normalized_dna_db(xfasta, XMERS_FULL_N, SEED + 19)
+    xout = os.path.join(tmp, "xmers_full.txt")
+    argv = ["-i", xfasta, "-o", xout, "-m", "20", "-R", "-k", "1", "-b",
+            "50000"]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    up0 = device_form.uploads
+    with spans((XmersModel, "run_phase0"),
+               (XmersModel, "run_inexact_phases"),
+               (PrimerMatchModel, "_halves_ctx"),
+               (PrimerMatchModel, "_engine_gate"),
+               (ConvScanner, "scan_gated"),
+               (PrimerMatchModel, "_halves_emit_arrays")) as took:
+        os.environ["SAT_HOST_SCAN"] = "0"
+        fns = kernel_fns()
+        for fn in fns.values():
+            fn.launches = 0
+        try:
+            got, wall, prof, _t = device_busy(
+                lambda: run_tool("xmers", argv, out=xout))
+            dev_ms = device_rows(prof)[1]
+        finally:
+            del os.environ["SAT_HOST_SCAN"]
+        launches = {name: fn.launches for name, fn in fns.items()}
+    uploads = device_form.uploads - up0
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    tails = multiprocessing.active_children()
+    t0 = time.perf_counter()
+    with host_route("cpu"):
+        want = run_tool("xmers", argv, out=xout)
+    s_host = time.perf_counter() - t0
+    if got != want or got.count(b":") < 10:
+        raise AssertionError("xmers at full width: device and host outputs "
+                             "differ")
+    if launches["scan_slots"] < 1 or launches["gate_slots"] < 1:
+        raise AssertionError(f"xmers at full width: launches {launches}")
+    if uploads != 1:
+        raise AssertionError(f"xmers uploaded its database {uploads} times")
+    if tails:
+        raise AssertionError(f"xmers left processes behind: {tails}")
+    if abs(mem1 - mem0) > 8 << 20:
+        raise AssertionError(f"xmers kept device memory: {mem0} -> {mem1}")
+    batches = len([t for t in took["_halves_ctx"] if t > 1e-3])
+    ctx = [t for t in took["_halves_ctx"] if t > 1e-3]
+    report["xmers"] = {
+        "n": XMERS_FULL_N, "wall_s": wall, "device_ms": dev_ms,
+        "phase0_s": sum(took["run_phase0"]),
+        "inexact_phases_s": sum(took["run_inexact_phases"]),
+        "table_build_s": ctx, "gate_build_s": sum(took["_engine_gate"]),
+        "scan_gated_s": took["scan_gated"],
+        "extension_s": sum(took["_halves_emit_arrays"]),
+        "host_run_s": s_host, "launches": launches}
+    log(f"xmers -m 20 -R -k 1 -b 50000 over n={XMERS_FULL_N} on {smi}: "
+        f"{len(got)} bytes == host route ({s_host:.3f} s); device run "
+        f"{wall:.3f} s (profiled), device time {dev_ms:.3f} ms "
+        f"({100 * dev_ms / 1e3 / wall:.2f}% of wall); phase 0 "
+        f"{report['xmers']['phase0_s']:.3f} s, phases 1 and 2 "
+        f"{report['xmers']['inexact_phases_s']:.3f} s over {batches} "
+        f"models: table builds "
+        + ", ".join(f"{t:.3f}" for t in ctx)
+        + f" s, gate tables {report['xmers']['gate_build_s']:.3f} s, "
+        f"scan_gated (the census and the slot gate past 2,048 seeds, the "
+        f"filter and seed_gate below) "
+        + ", ".join(f"{t:.3f}" for t in took["scan_gated"])
+        + f" s, extension {report['xmers']['extension_s']:.3f} s; "
+        f"launches { {k: v for k, v in launches.items() if v} }; database "
+        f"uploads {uploads}; tail processes left {len(tails)}; device "
+        f"memory {mem0} -> {mem1} bytes")
+    return report
 
 
 def main():
@@ -1011,7 +1654,10 @@ def main():
     from sequence_alignment_tools_tpu_torch.io.patterns import build_pattern_set
     from sequence_alignment_tools_tpu_torch.ops.host_scan import HostShiftAnd
     from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
-    from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import (
+        ConvScanner,
+        device_form,
+    )
     from sequence_alignment_tools_tpu_torch.ops.cuda import build
     from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
         filter_tables,
@@ -1162,7 +1808,7 @@ def main():
     log(f"main path scan, n=2^28 resident, P=20, k=0 on {smi}: "
         f"{s_main:.6f} s per scan, {MAIN_N / s_main / 1e9:.3f} Gbases/s "
         f"(host clock, median of 5)")
-    main_dev = sc._device_form(codes)
+    main_dev = device_form(codes, sc.device)
     dt = sc._tables_dev()
     got_occ = scan_occupancy(main_dev, dt.weights16, dt.thresholds, MAIN_N,
                              EOS)
@@ -1330,7 +1976,8 @@ def main():
                            np.zeros(S_h, np.int32), 1, 1).to(dev)
     timings = {}
     for label, codes_dev, n in (("2^22", gate_dev, gate_n),
-                                ("2^28", sc._device_form(codes), MAIN_N)):
+                                ("2^28", device_form(codes, sc.device),
+                                 MAIN_N)):
         mbc, mbi = gate_inputs(codes_dev, n)
         cap_g = 1 << 16
 
@@ -1496,6 +2143,19 @@ def main():
          "sellers_scan", xl_dev, xl_n, st_xl, EOS, 2, True, 1 << 20),
         (f"P={st_xxl.P} Lmax={st_xxl.Lmax} k=2", "sellers_scan",
          xl_dev[: 1 << 20], 1 << 20, st_xxl, EOS, 2, True, 1 << 20)]
+    # allvall -r's chunk at its path's shape: 2,048 query mers of 20
+    # bases and their reverse complements (P = 4,096), k = 1 with indels;
+    # the query random with text segments planted among its first mers,
+    # exact, with a substitution and with a deletion
+    aq = bytearray(random_dna(kr, 4_096))
+    for i, kinds in enumerate(((), ("sub",), ("del",), ())):
+        seg = ktext[50_000 + 80_000 * i : 50_060 + 80_000 * i]
+        seg = edit(kr, seg, kinds) if kinds else seg
+        aq[200 + 450 * i : 200 + 450 * i + len(seg)] = seg.encode()
+    st_av = sellers_tables(allvall_chunk(aq.decode(), kdb)).to(dev)
+    kcases.append((f"allvall -r chunk P={st_av.P} Lmax={st_av.Lmax} k=1",
+                   "sellers_scan", kdev, 1 << 20, st_av, EOS, 1, True,
+                   1 << 20))
     kedit_err = check_kedit(kcases)
     for k in (1, 2, 3):
         my22 = cuda_ms(lambda: myers_pairs(kdev, KEDIT_N, mt_b, EOS, k,
@@ -1598,7 +2258,7 @@ def main():
         f"candidates: {(time.perf_counter() - t0) / 3 * 1e3:.3f} ms per run")
     profile("k=2 main path, engine_hits, n=2^28 resident, P=20",
             lambda: list(m2.engine_hits()), 3)
-    main_dev = sc2._device_form(codes)
+    main_dev = device_form(codes, sc2.device)
     mt2 = sc2._myers_t()
     my_cap = sc2._cap("myers", MAIN_N)
     my_row = myers_pairs(main_dev, MAIN_N, mt2, EOS, 2, my_cap)
@@ -1667,7 +2327,7 @@ def main():
             or not scl.kernel_available(SELLERS_N):
         raise AssertionError("long primers did not take the Sellers route")
     t0 = time.perf_counter()
-    hends, hpids = split_host_pairs(scl.tables, 2, sub)
+    hends, hpids, _d = split_host_pairs(scl.tables, 2, sub)
     wantl = list(ml._filter_emit(hends, hpids))
     log(f"Sellers route host reference (native Sellers rows over pattern "
         f"groups): {len(hends)} candidates, {len(wantl)} engine hits in "
@@ -1699,7 +2359,7 @@ def main():
     log(f"Sellers route: P={psl.n_total}, Lmax={scl.tables.Lmax}, k=2, "
         f"n=2^26: {len(gotl)} engine hits == host route, all "
         f"{len(long_plants)} plants found, launches {sel_launches}")
-    sl_dev = scl._device_form(sub)
+    sl_dev = device_form(sub, scl.device)
     st2 = scl._sellers_t()
     sel_cap = scl._cap("sellers", SELLERS_N)
     sel_row = sellers_scan(sl_dev, SELLERS_N, st2, EOS, 2, True, sel_cap)
@@ -1809,7 +2469,7 @@ def main():
 
     ssc, gt_s1 = slots_setup(1, True, 0)
     mt_s = ssc._mer_dev()
-    sdev = ssc._device_form(scodes)
+    sdev = device_form(scodes, ssc.device)
     full = 1 << 22
     slots_row = scan_slots(sdev, slot_n, mt_s, full)
     want_row = scan_slots_ref(sdev, slot_n, mt_s, full)
@@ -1922,7 +2582,7 @@ def main():
         f"{len(ends50)} hits over 2^28 (every pattern found), scan_slots "
         f"launches {p50k_launches}, {s_p50k:.6f} s per scan, "
         f"{MAIN_N / s_p50k / 1e9:.3f} Gbases/s (host clock, median of 5)")
-    main_dev = xsc._device_form(codes)
+    main_dev = device_form(codes, xsc.device)
     mt50 = xsc._mer_dev()
     cap50 = xsc._slot_cap_for(MAIN_N)
     x_ms = cuda_ms(lambda: scan_slots(main_dev, MAIN_N, mt50, cap50), reps=10)
@@ -2272,7 +2932,7 @@ def main():
                        scan_slots, gate_slots):
                 fn.launches = 0
             t0 = time.perf_counter()
-            out_dev = run_cli(argv, tool)
+            out_dev = run_tool(tool, argv)
             s_cli = time.perf_counter() - t0
             cli_launches = {"scan_occupancy": scan_occupancy.launches,
                             "seed_gate": seed_gate.launches,
@@ -2287,7 +2947,7 @@ def main():
             # take the pattern-blocked rung, and the plants decide)
             with (split_host_route() if long_set
                   else contextlib.nullcontext()):
-                out_host = run_cli(argv, tool)
+                out_host = run_tool(tool, argv)
             if min(cli_launches[kname] for kname in need) < 1:
                 raise AssertionError(f"CLI {tool} {flags}: the device run "
                                      f"skipped a kernel: {cli_launches}")
@@ -2296,23 +2956,33 @@ def main():
                                      "outputs differ")
             if "-N" in flags and long_set and (
                     cli_launches["scan_occupancy"] < 4
-                    or out_dev.count(">") < len(LONG)):
+                    or out_dev.count(b">") < len(LONG)):
                 raise AssertionError(
                     f"CLI gs over the long primers: {cli_launches}, "
-                    f"{out_dev.count('>')} hits for {len(LONG)} exact plants")
-            if tool == "pcr_match" and out_dev.count("\n") < 10:
+                    f"{out_dev.count(b'>')} hits for {len(LONG)} exact plants")
+            if tool == "pcr_match" and out_dev.count(b"\n") < 10:
                 raise AssertionError("CLI pcr_match found fewer than its 10 "
                                      "planted pairs")
-            if db_file == tfasta and out_dev.count("\n") < 10:
+            if db_file == tfasta and out_dev.count(b"\n") < 10:
                 raise AssertionError(f"CLI {tool} {flags}: fewer hits than "
                                      "its 10 peptides")
             log(f"CLI {tool} {' '.join(flags)}"
                 f"{' (long primers)' if long_set else ''}"
                 f"{' (normalized corpus)' if db_file == tfasta else ''}"
                 f"{' (600,000-base corpus)' if db_file == small else ''}: "
-                f"{len(out_dev)} bytes, {out_dev.count(chr(10))} lines, "
+                f"{len(out_dev)} bytes, {len(out_dev.splitlines())} lines, "
                 f"device == host, device run {s_cli:.3f} s, launches "
                 f"{cli_launches}")
+        # 16. the tools of the scanners' paths through the CLI
+        t0 = time.perf_counter()
+        cli_tools_phase(tmp, fasta, pfile, lfile, entry0, smi)
+        log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # 17. nrdb and xmers at the sizes users run them
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scale_phase(tmp, smi)
+        log(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"

@@ -8,8 +8,21 @@ import sys
 
 _TOOLS = {
     "primer_match": ("primer_match", "main"),
+    "compress_seq": ("compress_seq", "main"),
+    "exact_match": ("exact_match", "main"),
+    "inexact_match": ("inexact_match", "main"),
     "pcr_match": ("pcr_match", "main"),
     "peptide_scan": ("peptide_scan", "main"),
+    "protein_mw": ("protein_mw", "main"),
+    "peptide_mult": ("peptide_mult", "main"),
+    "nrdb": ("nrdb", "main"),
+    "tandem_match": ("tandem_match", "main"),
+    "xmers": ("xmers", "main"),
+    "merstream": ("xmers", "merstream_main"),
+    "allvall": ("allvall", "allvall_main"),
+    "allvall_merge": ("allvall", "merge_main"),
+    "allvall_dump": ("allvall", "dump_main"),
+    "allvall_tobm": ("allvall", "tobm_main"),
 }
 
 

@@ -68,6 +68,47 @@ from .gate import GATE_ALPHA
 from .tables import device_tables
 
 
+_DEV_CACHE: dict = {}
+
+
+def device_form(codes, device: torch.device) -> torch.Tensor:
+    """uint8 copy of a host code array on ``device``, cached across
+    scanner instances by the array's identity and the device: engines
+    rebuild scanners per run (xmers per batch, allvall per chunk), and a
+    resident database must not re-pay the host->device transfer.  The
+    entry drops with the host array (weakref finalizer); the copy holds
+    no reference to the array, on the CPU too.  A memory-mapped or
+    read-only array is copied once on the host first.  ``uploads``
+    counts the copies made.
+
+    The copy lives as long as the host array, not as long as a scanner:
+    a streaming caller should not hold on to the block views it has
+    scanned, or every block's copy stays resident.  ``cuda`` and
+    ``cuda:<current device>`` name one entry."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (id(codes), device)
+    ent = _DEV_CACHE.get(key)
+    if ent is not None and ent[0]() is codes:
+        return ent[1]
+    arr = np.ascontiguousarray(codes, dtype=np.uint8)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    dev = torch.from_numpy(arr).to(device, copy=arr is codes)
+    device_form.uploads += 1
+    try:
+        ref = weakref.ref(codes)
+    except TypeError:  # an object without weak references: not cached
+        return dev
+    weakref.finalize(codes, _DEV_CACHE.pop, key, None)
+    _DEV_CACHE[key] = (ref, dev)
+    return dev
+
+
+device_form.uploads = 0
+
+
 class ConvScanner:
     """Block-streaming exact / k-mismatch scanner over a flat code array.
 
@@ -104,7 +145,6 @@ class ConvScanner:
         self.poison_eos = poison_eos
         self.device = resolve_device(device)
         self._dt = None
-        self._dev_c = None
         self._host_scanner = None
         self._radix_ok_c = None
         self._routes_done = None
@@ -148,19 +188,6 @@ class ConvScanner:
             raise NotImplementedError(
                 "sharded scans over a device mesh are not ported yet "
                 "(ROADMAP queue 1 item 11)")
-
-    def _device_form(self, codes) -> torch.Tensor:
-        """uint8 device copy of a host code array, kept for the last array
-        seen (a resident database is uploaded once)."""
-        ent = self._dev_c
-        if ent is not None and ent[0]() is codes:
-            return ent[1]
-        arr = np.ascontiguousarray(codes, dtype=np.uint8)
-        if not arr.flags.writeable:
-            arr = arr.copy()
-        dev = torch.from_numpy(arr).to(self.device)
-        self._dev_c = (weakref.ref(codes), dev)
-        return dev
 
     # -- candidate-buffer sizing --------------------------------------------
 
@@ -244,7 +271,7 @@ class ConvScanner:
         n = len(codes)
         if n == 0:
             return
-        codes_dev = self._device_form(codes)
+        codes_dev = device_form(codes, self.device)
         caps = self._presize(n)
         packed = self._dispatch(codes_dev, n, *caps)
         yield from self._decode_packed(packed.cpu().numpy(), codes_dev, n,
@@ -274,7 +301,7 @@ class ConvScanner:
             if n == 0:
                 pending.append((i, None, None, None, 0, None))
             else:
-                dev = self._device_form(codes)
+                dev = device_form(codes, self.device)
                 caps = (self._cap_mb, self._hit_cap)
                 packed = self._dispatch(dev, n, *caps)
                 host, ev = self._to_host(packed)
@@ -448,7 +475,7 @@ class ConvScanner:
             if n == 0:
                 pending.append((i, None, None, None, 0, None))
             else:
-                dev = self._device_form(codes)
+                dev = device_form(codes, self.device)
                 caps = self._gated_caps(n, slots)
                 packed = self._gated_dispatch(dev, n, gt_dev, indels, caps,
                                               slots)
@@ -753,7 +780,7 @@ class ConvScanner:
         :func:`.cuda.slots.scan_slots` on the scanner's device.  The true
         count comes back first; an overflow is one re-launch with a cap
         past it.  Only the live part of the row is fetched."""
-        dev = self._device_form(codes)
+        dev = device_form(codes, self.device)
         mt = self._mer_dev()
         while True:
             cap = self._slot_cap_for(n)
@@ -890,7 +917,7 @@ class ConvScanner:
         row is fetched (the device queues them back to back and each row's
         copy to pinned memory runs behind its pass), then the hits merge
         to the global (window-start, pattern) order."""
-        codes_dev = self._device_form(codes)
+        codes_dev = device_form(codes, self.device)
         n = len(codes)
         pending = []
         for off, sub in self._pblock_subs():

@@ -31,14 +31,13 @@ plain PyTorch versions run.
 from __future__ import annotations
 
 import os
-import weakref
 from collections import deque
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from .conv_scan import ConvScanner
+from .conv_scan import ConvScanner, device_form
 from .cuda.myers import MAX_FIELD, MAX_WORDS, myers_pairs, myers_tables
 from .cuda.sellers import kernel_takes, sellers_scan, sellers_tables
 
@@ -68,7 +67,6 @@ class SellersScanner:
         self.device = resolve_device(device)
         self._host_scanner = None
         self._routes_done = None
-        self._dev_c = None
         self._my_c = None
         self._sel_c = None
 
@@ -147,22 +145,6 @@ class SellersScanner:
         return self.tables.P > 0 and kernel_takes(self._sellers_t(),
                                                   self.k)
 
-    def _device_form(self, codes) -> torch.Tensor:
-        """uint8 device copy of a host code array, kept for the last array
-        seen (a resident database is uploaded once)."""
-        ent = self._dev_c
-        if ent is not None and ent[0]() is codes:
-            return ent[1]
-        arr = np.ascontiguousarray(codes, dtype=np.uint8)
-        if not arr.flags.writeable:
-            arr = arr.copy()
-        dev = torch.from_numpy(arr).to(self.device)
-        try:
-            self._dev_c = (weakref.ref(codes), dev)
-        except TypeError:
-            self._dev_c = None
-        return dev
-
     def _dispatch(self, kind: str, codes_dev, n: int, cap: int):
         t = self.tables
         eos = max(int(t.eos_code), 0)
@@ -219,7 +201,7 @@ class SellersScanner:
         if n == 0:
             z = np.zeros(0, np.int64)
             return z, z, z
-        codes_dev = self._device_form(codes)
+        codes_dev = device_form(codes, self.device)
         cap = self._cap(kind, n)
         row = self._dispatch(kind, codes_dev, n, cap).cpu().numpy()
         return self._decode(kind, row, codes_dev, n, cap)
@@ -247,7 +229,7 @@ class SellersScanner:
                 pending.append((i, None, None, None, None, 0, 0))
             else:
                 kind = self._kind(n)
-                dev = self._device_form(codes)
+                dev = device_form(codes, self.device)
                 cap = self._cap(kind, n)
                 host, ev = ConvScanner._to_host(
                     self._dispatch(kind, dev, n, cap))

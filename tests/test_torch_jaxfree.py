@@ -7,9 +7,10 @@ reports whether jax or any module of the JAX package
 (``sequence_alignment_tools_tpu`` or ``sequence_alignment_tools_tpu.*``)
 was imported, for exact search, for ``-k 1`` (the gated seed scan and the
 native extension) and for the filter engine (``-k 2``: the Myers scan and
-the cluster verify; ``-K 2``: the poisoned k-mismatch scan), and for
-peptide_scan and ``primer_match -T`` (the six-frame translation); a
-source scan checks every file of the package, ``chip_smoke.py`` and
+the cluster verify; ``-K 2``: the poisoned k-mismatch scan), for
+peptide_scan and ``primer_match -T`` (the six-frame translation), and for
+xmers and allvall (a model or a scanner per batch or chunk); a source
+scan checks every file of the package, ``chip_smoke.py`` and
 ``kernel_probe.py``.
 """
 
@@ -148,6 +149,52 @@ def test_sitless_translated_tools_never_import_jax(tmp_path, tool, flags):
     assert r.stdout.decode() == want.getvalue()
 
 
+@pytest.mark.parametrize("tool", ["xmers", "allvall"])
+def test_sitless_xmers_allvall_never_import_jax(tmp_path, tool):
+    """xmers (phases 1 and 2 over batches of a normalized database) and
+    allvall (``-K 1 -r``, the bitmap on stdout), on the plain device
+    route."""
+    from sequence_alignment_tools_tpu.apps import allvall as jax_av
+    from sequence_alignment_tools_tpu.apps import xmers as jax_xm
+    from sequence_alignment_tools_tpu_torch.apps.compress_seq import (
+        main as cs,
+    )
+
+    fasta = str(tmp_path / "db.fasta")
+    if tool == "xmers":
+        text = make_synthetic_fasta(fasta, n_entries=1, total=400, seed=12)
+        with open(fasta, "a") as f:
+            f.write(">rep\n" + text[100:160] + "\n")
+        assert cs(["-i", fasta, "-n", "true"]) == 0
+        argv = ["-i", fasta, "-m", "12", "-K", "1", "-R", "-b", "100"]
+    else:
+        text = make_synthetic_fasta(fasta, total=3000, seed=12)
+        bg = tmp_path / "bg.fasta"
+        bg.write_text(">bg\n" + text[500:560] + "\n")
+        query = str(tmp_path / "q.fasta")
+        make_synthetic_fasta(query, n_entries=1, total=400, seed=13,
+                             planted=[(100, text[510:540])])
+        argv = ["-i", query, "-b", str(bg), "-m", "20", "-K", "1", "-r",
+                "-o", "-"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env.update(SAT_DEVICE="cpu", SAT_HOST_SCAN="0")
+    r = subprocess.run(
+        [sys.executable, "-S", "-c", BOOT, str(REPO), tool] + argv,
+        capture_output=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr.decode()[-1500:]
+    assert b"jax_imported=False jax_package_imported=False" in r.stderr, \
+        r.stderr.decode()[-1500:]
+    out = tmp_path / "jax.out"
+    if tool == "xmers":
+        assert jax_xm.main(argv + ["-o", str(out)]) == 0
+        assert r.stdout.count(b"-1:") > 0
+    else:
+        assert jax_av.allvall_main(argv[:-1] + [str(out)]) == 0
+        assert r.stdout.count(b"BINARY RUN LENGTHS") == 2
+    assert r.stdout == out.read_bytes()
+
+
 # an import of the JAX package: a module path that starts with its name
 # and does not go on with "_torch"
 JAX_PKG_IMPORT = re.compile(
@@ -161,7 +208,11 @@ def test_no_file_imports_jax():
     assert len(files) >= 12
     for mod in ("ops/cuda/slots.py", "ops/gapped_seeds.py",
                 "models/pcr_match.py", "apps/pcr_match.py",
-                "io/translate.py", "apps/peptide_scan.py"):
+                "io/translate.py", "apps/peptide_scan.py",
+                "apps/exact_match.py", "apps/inexact_match.py",
+                "apps/nrdb.py", "apps/tandem_match.py", "apps/allvall.py",
+                "models/xmers.py", "apps/xmers.py", "apps/compress_seq.py",
+                "apps/protein_mw.py", "apps/peptide_mult.py"):
         assert PKG / mod in files
     for f in files:
         text = f.read_text()

@@ -2,9 +2,10 @@
 JAX package's.
 
 Both run in-process on the same synthesized inputs (``make_synthetic_fasta``,
-normalized by the JAX package's host ``compress_seq``): a protein database
-with planted peptides and substituted copies, and a DNA database with the
-peptides' codons planted on both strands.  The JAX apps run on their host
+normalized by the port's ``compress_seq``, whose artifacts
+``tests/test_torch_host_tools.py`` holds against the JAX package's): a
+protein database with planted peptides and substituted copies, and a DNA
+database with the peptides' codons planted on both strands.  The JAX apps run on their host
 route; the port's run on the native host machine (``SAT_HOST_SCAN=1``) and
 through its device route's plain PyTorch versions (``SAT_HOST_SCAN=0``).
 One case of each tool goes through the port's dispatcher.
@@ -17,10 +18,12 @@ import pytest
 
 from sequence_alignment_tools_tpu.apps import peptide_scan as jax_pep
 from sequence_alignment_tools_tpu.apps import primer_match as jax_pm
-from sequence_alignment_tools_tpu.apps.compress_seq import main as compress
 from sequence_alignment_tools_tpu_torch import __main__ as torch_main
 from sequence_alignment_tools_tpu_torch.apps import peptide_scan as torch_pep
 from sequence_alignment_tools_tpu_torch.apps import primer_match as torch_pm
+from sequence_alignment_tools_tpu_torch.apps.compress_seq import (
+    main as compress,
+)
 from tests.conftest import make_synthetic_fasta
 
 AAS = "ACDEFGHIKLMNPQRSTVWY"

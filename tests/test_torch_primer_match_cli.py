@@ -107,7 +107,7 @@ def test_unported_options_exit(inputs, flags, capsys, monkeypatch):
 
 
 def test_dispatcher(monkeypatch, capsys):
-    monkeypatch.setattr("sys.argv", ["sat", "protein_mw", "-h"])
+    monkeypatch.setattr("sys.argv", ["sat", "pairscan", "-h"])
     assert torch_main.main() == 1
     assert "not ported" in capsys.readouterr().err
     monkeypatch.setattr("sys.argv", ["sat", "--help"])

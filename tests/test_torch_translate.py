@@ -1,7 +1,7 @@
 """The port's six-frame translation against the JAX package's.
 
 ``io/translate.py`` of the port is a copy of the JAX module: on the same
-normalized DNA database (made by the JAX package's host ``compress_seq``)
+normalized DNA database (made by the port's ``compress_seq``)
 both give the same amino-acid codes, codon ids, frame end positions,
 coordinate mapping and decoded text, for all six frames and the forward
 three, under each amino-acid map; ``apply_charmap`` likewise over a
@@ -11,9 +11,11 @@ protein database.
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.apps.compress_seq import main as compress
 from sequence_alignment_tools_tpu.io import compress as jax_compress
 from sequence_alignment_tools_tpu.io import translate as jax_tr
+from sequence_alignment_tools_tpu_torch.apps.compress_seq import (
+    main as compress,
+)
 from sequence_alignment_tools_tpu_torch.io import compress as torch_compress
 from sequence_alignment_tools_tpu_torch.io import translate as torch_tr
 from tests.conftest import make_synthetic_fasta
