@@ -136,7 +136,20 @@ at full size and checks their output:
     bases, cut from 2^20 to fit) against the CPU route, with phase 0,
     each batch's table build and gated scan timed, one upload of the
     database, no process left behind and the device memory back to its
-    level before the run.
+    level before the run;
+18. the 21 tool names that reach no scanner, each through ``python -m
+    sequence_alignment_tools_tpu_torch <tool>`` in a process of its own on
+    the CPU (up to 8 at once; the card is not used): extract_seq,
+    kmer_count, kmer_annotate, polyrun and atac_seq on the phase-16
+    corpus, chario on its first 2^16 bases; aacomp and aacomplookup,
+    genome_simulation (twice, one seed), solid_simulation, pairscan
+    ``-m 6``, the word-graph tools (build_graph, walk_graph ``-R -O``,
+    cannon_csbh_graph, csbh_annotate, solid_assembly) and the RL stack
+    (Indexer, IndexerAA, Xspace, XspaceLo, WordGraph) on small generated
+    inputs; each exit status and one invariant a tool checked, each wall
+    logged, no process loading jax or the JAX package or initializing
+    CUDA; walk_graph ``-O``'s min-cost flow against brute force on small
+    graphs.
 
 Every phase raises on a mismatch.  The line before the last is a JSON
 object with each kernel's launches on its main path, error, times and
@@ -1643,6 +1656,623 @@ def scale_phase(tmp, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the tools that reach no scanner, through ``python -m``
+
+# each tool process loads this hook first (``sitecustomize`` on its
+# PYTHONPATH) and reports at exit what it loaded and whether it touched
+# the card
+HOST_HOOK = '''import atexit, sys
+
+
+def _report():
+    torch = sys.modules.get("torch")
+    sys.stderr.write("host-tool-process jax=%s jax_package=%s "
+                     "cuda_initialized=%s\\n" % (
+        any(m == "jax" or m.startswith("jax.") for m in sys.modules),
+        any(m == "sequence_alignment_tools_tpu"
+            or m.startswith("sequence_alignment_tools_tpu.")
+            for m in sys.modules),
+        bool(torch is not None and torch.cuda.is_initialized())))
+
+
+atexit.register(_report)
+'''
+HOST_CHARIO_N = 1 << 16   # chario walks its stream a character at a time
+HOST_SMALL_N = 1 << 16    # the simulators' and pairscan's database
+HOST_GENOME_N = 200_000   # genome_simulation: a Python LCG step a base
+HOST_WORKERS = 8          # tool processes at once, one a CPU core
+
+
+def fasta_entries(path):
+    """[(header, sequence)] of a FASTA file."""
+    out = []
+    with open(path) as f:
+        for block in f.read().split(">")[1:]:
+            head, _, body = block.partition("\n")
+            out.append((head, body.replace("\n", "")))
+    return out
+
+
+def colorspace(read):
+    """SOLiD colour space: a ``G`` primer, then the XOR of neighbouring
+    2-bit base codes."""
+    code = {"A": 0, "C": 1, "G": 2, "T": 3}
+    prev, out = "G", ["G"]
+    for c in read:
+        out.append(str(code[prev] ^ code[c]))
+        prev = c
+    return "".join(out)
+
+
+def standard_translation(dna):
+    """The standard genetic code, written out here (TCAG order)."""
+    aa = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+    ix = {"T": 0, "C": 1, "A": 2, "G": 3}
+    return "".join(aa[16 * ix[dna[i]] + 4 * ix[dna[i + 1]] + ix[dna[i + 2]]]
+                   for i in range(0, len(dna) - 2, 3))
+
+
+def kmers(text, k):
+    return {part[i:i + k] for part in text.split("$")
+            for i in range(len(part) - k + 1)}
+
+
+def brute_min_cost(n, arcs, src, snk, want):
+    """The exhaustive optimum of ``tests/test_netflo.py``."""
+    import itertools
+
+    best = None
+    for assign in itertools.product(*[range(c + 1)
+                                      for (_u, _v, c, _w, _t) in arcs]):
+        net = [0] * n
+        for f, (u, v, _c, _w, _t) in zip(assign, arcs):
+            net[u] -= f
+            net[v] += f
+        if net[snk] == want and net[src] == -want and all(
+                net[x] == 0 for x in range(n) if x not in (src, snk)):
+            cost = sum(f * a[3] for f, a in zip(assign, arcs))
+            best = cost if best is None else min(best, cost)
+    return best
+
+
+def check_min_cost_flow(cases=20):
+    """walk_graph ``-O``'s solver: its cost equal to the exhaustive
+    optimum on small random graphs (the cases of ``tests/test_netflo.py``),
+    ValueError where the demand cannot be met."""
+    import random
+
+    from sequence_alignment_tools_tpu_torch.ops.netflo import min_cost_flow
+
+    feasible = 0
+    for seed in range(cases):
+        rng = random.Random(seed)
+        n = rng.randint(3, 5)
+        arcs = []
+        for i in range(rng.randint(3, 7)):
+            u = rng.randrange(n)
+            v = rng.randrange(n)
+            while v == u:
+                v = rng.randrange(n)
+            arcs.append((u, v, rng.randint(0, 3), rng.randint(0, 9), i))
+        want = rng.randint(1, 3)
+        best = brute_min_cost(n, arcs, 0, n - 1, want)
+        try:
+            flows = min_cost_flow(n, arcs, 0, n - 1, want)
+        except ValueError:
+            flows = None
+        got = None if flows is None else sum(
+            f * a[3] for f, a in zip(flows, arcs))
+        if got != best:
+            raise AssertionError(f"min_cost_flow seed {seed}: cost {got}, "
+                                 f"brute force {best}")
+        feasible += best is not None
+    return feasible
+
+
+def host_tool_jobs(tmp, corpus, small, genome, reads, rlfa, prot):
+    """The phase's 23 runs of the port's dispatcher (genome_simulation
+    twice, ``--help`` once) as {label: (argv, labels it reads the output
+    of, stdin text or a function of the finished runs giving it,
+    invariant(run) -> its name)}."""
+    p = {n: os.path.join(tmp, n) for n in (
+        "pos.txt", "rec.txt", "chario.seq", "mers4.txt", "ka.txt", "aa.bin",
+        "g1.sqn", "g2.sqn", "ps.bm", "g.wg", "g.sq", "c.wg", "ix", "pa",
+        "xs", "lo", "wg.ee")}
+    rng = np.random.default_rng(SEED + 18)
+    ents = fasta_entries(corpus)
+    seqs = [s for _h, s in ents]
+
+    # extract_seq: 12 slices of each entry
+    recs = [(e, int(rng.integers(0, len(s) - 600)),
+             int(rng.integers(1, 500))) for e, s in enumerate(seqs)
+            for _ in range(12)]
+    with open(p["pos.txt"], "w") as f:
+        f.writelines(f"{e} {a} {n}\n" for e, a, n in recs)
+    want_ex = "".join(seqs[e][a:a + n] + "\n" for e, a, n in recs)
+    # the reference's record loop runs once more on the last record at EOF
+    want_ex += seqs[recs[-1][0]][recs[-1][1]:recs[-1][1] + recs[-1][2]] + "\n"
+
+    def ex_ok(r):
+        if r["out"].decode() != want_ex:
+            raise AssertionError("extract_seq: output differs from the "
+                                 "FASTA slices")
+        return "output == the FASTA slices (and the last again at EOF)"
+
+    # kmer_count -k 4 -a: the census sums to the valid windows
+    def kc_ok(r):
+        counts = [int(line.split()[1])
+                  for line in open(p["mers4.txt"]).read().splitlines()]
+        windows = 0
+        for s in seqs:
+            a = np.frombuffer(s.encode(), np.uint8)
+            ok = np.isin(a, np.frombuffer(b"ACGT", np.uint8))
+            if len(a) >= 4:
+                windows += int(np.lib.stride_tricks.sliding_window_view(
+                    ok, 4).all(axis=1).sum())
+        if sum(counts) != windows or len(counts) != 256:
+            raise AssertionError(f"kmer_count: {sum(counts)} counted over "
+                                 f"{len(counts)} mers, {windows} windows")
+        return f"sum of counts == {windows} valid windows (numpy)"
+
+    # kmer_annotate: the first entry's window values against the table
+    def ka_ok(r):
+        table = {}
+        for line in open(p["mers4.txt"]).read().splitlines():
+            mer, c = line.split()
+            table[mer] = int(c)
+        with open(p["ka.txt"], "rb") as f:
+            lines = f.read().split(b"\n")
+        if len(lines) != len(seqs) + 1 or lines[-1]:
+            raise AssertionError(f"kmer_annotate: {len(lines) - 1} lines "
+                                 f"for {len(seqs)} entries")
+        got = np.array(lines[0].split(b"\t", 1)[1].split(), dtype=np.int64)
+        s = seqs[0]
+        lut = np.zeros(256, np.int64)
+        for i, c in enumerate(b"ACGT"):
+            lut[c] = i
+        a = lut[np.frombuffer(s.encode(), np.uint8)]
+        h = np.lib.stride_tricks.sliding_window_view(a, 4) @ (
+            4 ** np.arange(3, -1, -1))
+        rc = np.lib.stride_tricks.sliding_window_view(3 - a, 4) @ (
+            4 ** np.arange(4))
+        vals = np.zeros(256, np.int64)
+        for mer, c in table.items():
+            vals[int(np.dot([lut[ord(x)] for x in mer],
+                            4 ** np.arange(3, -1, -1)))] = c
+        want = vals[h] + vals[rc]
+        if len(got) != len(s) - 3 or not np.array_equal(got, want):
+            raise AssertionError("kmer_annotate: the first entry's window "
+                                 "values differ from the table's")
+        return (f"{len(got)} window values of entry 0 == forward + reverse "
+                "complement table counts (numpy)")
+
+    # polyrun: every homopolymer of 10 or more, by numpy
+    def pr_ok(r):
+        want = set()
+        for e, s in enumerate(seqs):
+            a = np.frombuffer(s.encode(), np.uint8)
+            cut = np.flatnonzero(a[1:] != a[:-1]) + 1
+            st = np.concatenate([[0], cut])
+            en = np.concatenate([cut, [len(a)]])
+            for b0, b1 in zip(st, en):
+                if b1 - b0 >= 10:
+                    want.add((e + 1, int(b0), int(b1), chr(a[b0])))
+        got = {(int(f), int(s), int(t), c) for f, s, t, c in
+               (line.split() for line in r["out"].decode().splitlines())}
+        if got != want or not want:
+            raise AssertionError(f"polyrun: {len(got)} runs, numpy finds "
+                                 f"{len(want)}")
+        return f"the {len(want)} runs of 10 or more == numpy's"
+
+    # atac_seq: 40 disjoint records, some reverse complemented
+    starts = sorted(rng.choice(np.arange(0, len(seqs[0]) - 400, 400), 40,
+                               replace=False))
+    arecs = []
+    with open(p["rec.txt"], "w") as f:
+        for i, a in enumerate(starts):
+            e = i % len(seqs)
+            n = int(rng.integers(50, 300))
+            rev = i % 3 == 0
+            arecs.append((f"r{i}", e, int(a), n, rev))
+            f.write(f"r{i} {e} {a} {n} {int(rev)} {int(rev)}\n")
+
+    def at_ok(r):
+        from sequence_alignment_tools_tpu_torch.utils.iupac import (
+            reverse_comp,
+        )
+
+        blocks = r["out"].decode().split(">")[1:]
+        got = {}
+        for b in blocks:
+            head, _, body = b.partition("\n")
+            rid = head.split("/alignment={")[1].split("}")[0]
+            got[rid] = body.replace("\n", "")
+        for rid, e, a, n, rev in arecs:
+            s = seqs[e][a:a + n]
+            if got.get(rid) != (reverse_comp(s) if rev else s):
+                raise AssertionError(f"atac_seq: record {rid} differs")
+        if len(got) != len(arecs):
+            raise AssertionError(f"atac_seq: {len(got)} of {len(arecs)}")
+        return f"{len(arecs)} records == the slices (reverse complemented)"
+
+    # chario: frame 0 under the standard code
+    cbases = seqs[0][:HOST_CHARIO_N]
+    with open(p["chario.seq"], "w") as f:
+        f.write(cbases + "$")
+
+    def ch_ok(r):
+        head = r["out"].decode()[:50]
+        if head != standard_translation(cbases[:150]):
+            raise AssertionError("chario: frame 0 differs from the standard "
+                                 "code")
+        return "the first 50 characters == frame 0 under the standard code"
+
+    # aacomp / aacomplookup
+    def aa_index():
+        data = open(p["aa.bin"], "rb").read()
+        n = int(np.frombuffer(data[:8], "<u8")[0])
+        recs = np.frombuffer(data[8:], np.dtype([("m", "<f4"), ("pad", "<u4"),
+                                                 ("e", "<i8"), ("p", "<i8")]))
+        return n, len(data), recs
+
+    def ac_ok(r):
+        n, size, recs = aa_index()
+        m = recs["m"]
+        if size != 8 + 24 * n or n < 1000 or (np.diff(m) < 0).any() \
+                or m.min() < 100 or m.max() > 1000:
+            raise AssertionError(f"aacomp: {n} records in {size} bytes")
+        return f"{n} records, 24 bytes each, masses sorted in [100, 1000]"
+
+    def lookup_stdin(runs):
+        _n, _s, recs = aa_index()
+        pick = recs[[len(recs) // 7, len(recs) // 2, len(recs) - 3]]
+        return "".join(f"{float(x['m'])!r}\n" for x in pick)
+
+    def al_ok(r):
+        _n, _s, recs = aa_index()
+        pick = recs[[len(recs) // 7, len(recs) // 2, len(recs) - 3]]
+        hits = [tuple(map(int, line.split()))
+                for line in r["out"].decode().splitlines()]
+        for q, x in enumerate(pick):
+            if (q, int(x["e"]), int(x["p"])) not in hits:
+                raise AssertionError(f"aacomplookup: query {q} misses its "
+                                     "own record")
+        return f"each of 3 queries finds its own record ({len(hits)} hits)"
+
+    # genome_simulation: one seed twice, glibc's drand48 draw for draw
+    def gs_ok(r):
+        import ctypes
+        import ctypes.util
+
+        a = open(p["g1.sqn"], "rb").read()
+        b = open(p["g2.sqn"], "rb").read()
+        libc = ctypes.CDLL(ctypes.util.find_library("c"))
+        libc.drand48.restype = ctypes.c_double
+        libc.srand48(ctypes.c_long(7))
+        want = bytes(int(libc.drand48() * 4) for _ in range(1000))
+        if a != b or len(a) != HOST_GENOME_N + 2 or a[0] != 4 \
+                or a[-1] != 4 or a[1:1001] != want:
+            raise AssertionError("genome_simulation: runs differ or leave "
+                                 "glibc's drand48 sequence")
+        return "two runs of seed 7 equal, the first 1,000 codes glibc's"
+
+    # solid_simulation: error-free reads of the database, in colour space
+    small_seq = "".join(s for _h, s in fasta_entries(small))
+
+    def ss_ok(r):
+        from sequence_alignment_tools_tpu_torch.utils.iupac import (
+            reverse_comp,
+        )
+
+        lines = r["out"].decode().splitlines()
+        for hdr, csq in zip(lines[::2], lines[1::2]):
+            label, read = hdr[1:].split()
+            if (read not in small_seq and reverse_comp(read) not in small_seq
+                    or csq != colorspace(read)):
+                raise AssertionError(f"solid_simulation: read {label}")
+        if len(lines) != 400:
+            raise AssertionError(f"solid_simulation: {len(lines)} lines")
+        return "200 reads of the database (or reverse complements) in " \
+               "colour space"
+
+    # pairscan: the checkpoint reads back, again within first
+    def ps_ok(r):
+        from sequence_alignment_tools_tpu_torch.apps.allvall import (
+            read_bitmap_block,
+        )
+
+        data = open(p["ps.bm"], "rb").read()
+        if not data.startswith(b"BEGIN\n0 0\n") or not data.endswith(b"END\n"):
+            raise AssertionError("pairscan: checkpoint framing")
+        first, at = read_bitmap_block(data, 10)
+        again, at = read_bitmap_block(data, at)
+        if len(first) != 1 << 24 or (again & ~first).any() \
+                or not again.any() or first.sum() > 8 * HOST_SMALL_N:
+            raise AssertionError("pairscan: bitmaps")
+        return (f"checkpoint reads back: {int(first.sum())} pairs seen, "
+                f"{int(again.sum())} again, again within first")
+
+    # the graph stack
+    rtext = "$".join(s for _h, s in fasta_entries(reads))
+
+    def bg_ok(r):
+        edges = open(p["g.wg"]).read().splitlines()
+        if len(edges) < 1000 or any(len(e.split()) != 5 for e in edges):
+            raise AssertionError("build_graph: graph file")
+        return f"{len(edges)} edges of 5 fields"
+
+    def wk_ok(r):
+        miss = kmers(rtext, 15) - kmers(r["out"].decode(), 15)
+        if miss:
+            raise AssertionError(f"walk_graph -R -O: {len(miss)} read "
+                                 "15-mers missing from the walk")
+        return "every read 15-mer is in the walk"
+
+    def cn_ok(r):
+        before = len(open(p["g.wg"]).read().splitlines())
+        after = open(p["c.wg"]).read().splitlines()
+        if not 0 < len(after) < before \
+                or any(len(e.split()) != 7 for e in after):
+            raise AssertionError("cannon_csbh_graph: compressed graph")
+        return f"{before} edges compressed to {len(after)}"
+
+    def an_ok(r):
+        lines = r["out"].decode().splitlines()
+        real = sum(int(e.split()[4]) > 0
+                   for e in open(p["g.wg"]).read().splitlines())
+        if not lines[0].startswith("track type=wiggle_0") \
+                or len(lines) - 1 != real:
+            raise AssertionError("csbh_annotate: track")
+        return f"one track line per real edge ({real})"
+
+    def sa_ok(r):
+        contigs = r["out"].decode().split("$")
+        if genome not in contigs:
+            raise AssertionError("solid_assembly: the genome is not among "
+                                 "the contigs")
+        return f"the {len(genome)}-base genome is one of the contigs"
+
+    # the RL stack
+    rl = fasta_entries(rlfa)
+
+    def ix_ok(r):
+        fwd = open(p["ix"] + ".fwd", "rb").read()
+        if len(fwd) != 1 + sum(len(s) + 1 for _h, s in rl) \
+                or fwd.count(b"$") != len(rl) + 1:
+            raise AssertionError("Indexer: forward file")
+        return f"forward file of {len(fwd)} bytes, {len(rl) + 1} terminals"
+
+    def ia_ok(r):
+        seq = open(p["pa"] + ".seq", "rb").read()
+        n = fasta_entries(prot)
+        if len(seq) != 1 + sum(len(s) + 1 for _h, s in n):
+            raise AssertionError("IndexerAA: sequence file")
+        return f"amino file of {len(seq)} bytes"
+
+    def xs_ok(r):
+        lines = open(p["xs"]).read().splitlines()
+        slen = len(open(p["ix"] + ".fwd", "rb").read())
+        if lines[0] != " 0.$" or not lines[1].endswith(
+                f" {slen}.{lines[1][-1]}") or len(lines) < 50:
+            raise AssertionError("Xspace: x-space of the Indexer files")
+        return f"reads the phase's Indexer files: {len(lines)} lines"
+
+    def lo_ok(r):
+        lines = open(p["lo"]).read().splitlines()
+        slen = len(open(p["ix"] + ".fwd", "rb").read())
+        if lines[0] != f" 0.$ {slen - 1}.$" or len(lines) < 50:
+            raise AssertionError("XspaceLo: x-space of the Indexer files")
+        return f"reads the phase's Indexer files: {len(lines)} lines"
+
+    def wg_ok(r):
+        lines = open(p["wg.ee"]).read().splitlines()
+        run = 0
+        for line in lines[:-1]:
+            f = line.split("\t")
+            if f[0] == "e":
+                run += 1
+            elif f[0] != "E" or int(f[5]) != run + 1:
+                raise AssertionError("WordGraph: e-run counts")
+            else:
+                run = 0
+        if lines[-1] != "." or len(lines) < 20:
+            raise AssertionError("WordGraph: edge list")
+        return f"{len(lines) - 1} edge lines, each E count == its e-run + 1"
+
+    def help_ok(r):
+        from sequence_alignment_tools_tpu_torch.__main__ import _TOOLS
+
+        names = r["err"].decode().split("Tools:")[1].split("host-tool")[0]
+        if names.split() != sorted(_TOOLS) or len(_TOOLS) != 37:
+            raise AssertionError("the dispatcher's usage: tool names")
+        return "the usage lists the dispatcher's 37 tool names"
+
+    ix = p["ix"]
+    jobs = {
+        # the chains' heads first: the runs that others read
+        "kmer_count": (["-i", corpus, "-k", "4", "-a", "-o", p["mers4.txt"]],
+                       (), None, kc_ok),
+        "Indexer": (["-i", ix + ".idx", "-f", ix + ".fwd", "-r", ix + ".rev",
+                     rlfa], (), None, ix_ok),
+        "build_graph": (["-i", reads, "-k", "15", "-g", p["g.wg"], "-s",
+                         p["g.sq"]], (), None, bg_ok),
+        "aacomp": (["-i", prot, "-M", "1000", "-o", p["aa.bin"]], (), None,
+                   ac_ok),
+        "genome_simulation": (["-l", str(HOST_GENOME_N), "-s", "7", "-o",
+                               p["g1.sqn"]], (), None, None),
+        "kmer_annotate": (["-m", p["mers4.txt"], "-s", corpus, "-k", "4",
+                           "-o", p["ka.txt"]], ("kmer_count",), None, ka_ok),
+        "Xspace": (["-m", "8", "-a", "-i", ix + ".idx", "-f", ix + ".fwd",
+                    "-o", p["xs"]], ("Indexer",), None, xs_ok),
+        "WordGraph": (["-x", p["xs"], "-m", "8", "-f", ix + ".fwd", "-o",
+                       p["wg.ee"]], ("Xspace",), None, wg_ok),
+        "walk_graph": (["-g", p["g.wg"], "-s", p["g.sq"], "-k", "15", "-R",
+                        "-O"], ("build_graph",), None, wk_ok),
+        "extract_seq": (["-i", corpus, "-A", p["pos.txt"]], (), None, ex_ok),
+        "polyrun": (["-i", corpus, "-l", "10", "-A", r"%f %s %e %t\n"], (),
+                    None, pr_ok),
+        "atac_seq": (["-i", corpus, "-A", p["rec.txt"]], (), None, at_ok),
+        "chario": (["-i", p["chario.seq"]], (), None, ch_ok),
+        "pairscan": (["-i", small, "-o", p["ps.bm"], "-m", "6", "-d", "0",
+                      "-D", "3"], (), None, ps_ok),
+        "aacomplookup": (["-i", p["aa.bin"], "-t", "0.01"], ("aacomp",),
+                         lookup_stdin, al_ok),
+        "genome_simulation#2": (["-l", str(HOST_GENOME_N), "-s", "7", "-o",
+                                 p["g2.sqn"]], ("genome_simulation",), None,
+                                gs_ok),
+        "solid_simulation": (["-i", small, "-m", "25", "-S", "200", "-R",
+                              "-e", "0 0 0 0 0", "-s", "5"], (), None,
+                             ss_ok),
+        "cannon_csbh_graph": (["-g", p["g.wg"], "-k", "15", "-o", p["c.wg"]],
+                              ("build_graph",), None, cn_ok),
+        "csbh_annotate": (["-g", p["g.wg"], "-k", "15"], ("build_graph",),
+                          None, an_ok),
+        "solid_assembly": (["-g", p["g.wg"], "-i", reads, "-k", "15"],
+                           ("build_graph",), None, sa_ok),
+        "IndexerAA": (["-i", p["pa"] + ".idx", "-f", p["pa"] + ".seq", prot],
+                      (), None, ia_ok),
+        "XspaceLo": (["-k", "8", "-i", ix + ".idx", "-f", ix + ".fwd", "-r",
+                      ix + ".rev", "-o", p["lo"]], ("Indexer",), None, lo_ok),
+    }
+    jobs = {label: ([label.split("#")[0]] + argv, *rest)
+            for label, (argv, *rest) in jobs.items()}
+    # the dispatcher alone, among the first runs: the interpreter and the
+    # package import, the floor under every tool's wall
+    return {"--help": (["--help"], (), None, help_ok), **jobs}
+
+
+def run_host_tools(tmp, jobs, workers=HOST_WORKERS):
+    """Each job as ``python -m sequence_alignment_tools_tpu_torch <argv>``
+    in a process of its own, up to ``workers`` at once, a job once the
+    runs it reads have ended; {label: {"rc", "out", "err", "wall_s"}}."""
+    hook = os.path.join(tmp, "hook")
+    os.makedirs(hook, exist_ok=True)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(HOST_HOOK)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [hook, repo] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    done, running, pending = {}, {}, list(jobs)
+    try:
+        while pending or running:
+            for label in list(pending):
+                argv, deps, stdin, _ok = jobs[label]
+                if len(running) >= workers or not all(d in done
+                                                      for d in deps):
+                    continue
+                pending.remove(label)
+                if callable(stdin):
+                    stdin = stdin(done)
+                outf = open(os.path.join(tmp, f"{label}.stdout"), "w+b")
+                errf = open(os.path.join(tmp, f"{label}.stderr"), "w+b")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "sequence_alignment_tools_tpu_torch"]
+                    + argv, cwd=tmp, env=env,
+                    stdin=subprocess.PIPE, stdout=outf, stderr=errf)
+                proc.stdin.write((stdin or "").encode())
+                proc.stdin.close()
+                running[label] = (proc, outf, errf, time.perf_counter())
+            for label, (proc, outf, errf, t0) in list(running.items()):
+                if proc.poll() is None:
+                    continue
+                wall = time.perf_counter() - t0
+                del running[label]
+                outf.seek(0)
+                errf.seek(0)
+                done[label] = {"rc": proc.returncode, "out": outf.read(),
+                               "err": errf.read(), "wall_s": wall}
+                outf.close()
+                errf.close()
+            time.sleep(0.01)
+    finally:
+        for proc, outf, errf, _t0 in running.values():
+            proc.kill()
+            proc.wait()
+            outf.close()
+            errf.close()
+    return done
+
+
+def host_tools_phase(tmp, smi, entry_len=ENTRY):
+    """Phase 18: the 21 tool names that reach no scanner, each through
+    ``python -m sequence_alignment_tools_tpu_torch <tool>`` in a process
+    of its own on this machine's CPU: exit status, one invariant a tool,
+    no jax and nothing of the JAX package loaded, no CUDA context
+    initialized.  The corpus tools read the phase-16 corpus (bench.py's
+    layout, ``entry_len`` bases an entry, normalized as users normalize
+    it); chario reads its first 2^16 bases, the simulators and pairscan a
+    2^16-base database, the graph stack reads over a genome with a
+    repeat, the RL stack a 6-entry DNA FASTA and 40 proteins."""
+    from sequence_alignment_tools_tpu_torch.apps.compress_seq import (
+        main as compress_seq,
+    )
+
+    t0 = time.perf_counter()
+    corpus = os.path.join(tmp, "corpus.fasta")
+    first = write_bench_corpus(corpus, entry_len=entry_len)
+    if compress_seq(["-i", corpus, "-n", "true"]):
+        raise RuntimeError("compress_seq failed")
+    rng = np.random.default_rng(SEED + 19)
+    small = os.path.join(tmp, "small.fasta")
+    q = HOST_SMALL_N // 4
+    write_fasta(small, [(f"s{e} small entry {e}",
+                         first[e * q:(e + 1) * q].encode())
+                        for e in range(4)])
+    if compress_seq(["-i", small, "-n", "true"]):
+        raise RuntimeError("compress_seq failed")
+    # solid_assembly's genome: a 40-base repeat between three 2,000-base
+    # stretches, read by 100-base reads every 10 bases
+    a, r, b, c = (random_dna(rng, n).decode() for n in (2000, 40, 2000,
+                                                         2000))
+    genome = a + r + b + r + c
+    reads = os.path.join(tmp, "reads.fasta")
+    write_fasta(reads, [(f"w{i}", genome[i:i + 100].encode())
+                        for i in range(0, len(genome) - 99, 10)], width=100)
+    rlfa = os.path.join(tmp, "rl.fasta")
+    write_fasta(rlfa, [(f"r{e} rl entry {e}", bytes(
+        np.frombuffer(b"ACGTACGTacgtN", np.uint8)[
+            rng.integers(0, 13, 2000 + 300 * e)])) for e in range(6)],
+        width=61)
+    prot = os.path.join(tmp, "prot.fasta")
+    aas = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    write_fasta(prot, [(f"q{e} protein {e}",
+                        bytes(aas[rng.integers(0, 20, 300)]))
+                       for e in range(40)])
+    jobs = host_tool_jobs(tmp, corpus, small, genome, reads, rlfa, prot)
+    s_inputs = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    feasible = check_min_cost_flow()
+    log(f"host tools: min_cost_flow == brute force on 20 small graphs "
+        f"({feasible} feasible, the rest refused), "
+        f"{time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    runs = run_host_tools(tmp, jobs)
+    s_runs = time.perf_counter() - t1
+    for label, (argv, _deps, _stdin, ok) in jobs.items():
+        run = runs[label]
+        tail = run["err"].decode(errors="replace").splitlines()
+        if run["rc"] not in ((0, 134) if label == "chario" else (0,)):
+            raise AssertionError(f"{label}: exit status {run['rc']}: "
+                                 + "\n".join(tail[-20:]))
+        if tail[-1:] != ["host-tool-process jax=False jax_package=False "
+                         "cuda_initialized=False"]:
+            raise AssertionError(f"{label}: {tail[-1:]}")
+        what = ok(run) if ok else "checked with its second run"
+        log(f"host tool {' '.join(os.path.basename(x) for x in argv)}: "
+            f"exit {run['rc']}, {len(run['out'])} bytes out, wall "
+            f"{run['wall_s']:.3f} s; invariant: {what}")
+    names = {argv[0] for argv, *_ in jobs.values()} - {"--help"}
+    if len(names) != 21:
+        raise AssertionError(f"host tools: {len(names)} names run")
+    log(f"host tools on {smi}: 21 names in {len(jobs) - 1} processes and "
+        f"--help in one (up to {HOST_WORKERS} at once), CPU only: none "
+        f"loaded jax or the JAX package, none initialized CUDA; inputs "
+        f"{s_inputs:.3f} s (corpus of {8 * entry_len} bases written and "
+        f"normalized), runs {s_runs:.3f} s; cuts: chario to the first "
+        f"{HOST_CHARIO_N} bases, genome_simulation to {HOST_GENOME_N} bases")
+
+
 def main():
     import torch
 
@@ -2983,6 +3613,12 @@ def main():
         t0 = time.perf_counter()
         scale_phase(tmp, smi)
         log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # 18. the tools that reach no scanner, through the CLI on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        host_tools_phase(tmp, smi)
+        log(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"

@@ -107,9 +107,19 @@ def test_unported_options_exit(inputs, flags, capsys, monkeypatch):
 
 
 def test_dispatcher(monkeypatch, capsys):
-    monkeypatch.setattr("sys.argv", ["sat", "pairscan", "-h"])
-    assert torch_main.main() == 1
-    assert "not ported" in capsys.readouterr().err
+    """``pairscan -h`` reaches the tool (its usage, exit 1, as the JAX
+    dispatcher's); ``--help`` lists the tools and exits 0."""
+    from sequence_alignment_tools_tpu import __main__ as jax_main
+
+    errs = []
+    for m in (jax_main, torch_main):
+        monkeypatch.setattr("sys.argv", ["sat", "pairscan", "-h"])
+        with pytest.raises(SystemExit) as exc:
+            m.main()
+        assert exc.value.code == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[1] == errs[0]
+    assert errs[0].startswith("Usage: pairscan")
     monkeypatch.setattr("sys.argv", ["sat", "--help"])
     assert torch_main.main() == 0
     assert "primer_match" in capsys.readouterr().err

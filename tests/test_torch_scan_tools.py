@@ -179,7 +179,11 @@ def test_tandem_match_parity(scan_files, cfg, host_scan, monkeypatch):
 
 
 def test_dispatcher(scan_files, monkeypatch, capsys):
-    """The port's dispatcher runs each tool, and lists the 16 ported."""
+    """The port's dispatcher runs each tool, has the JAX dispatcher's 37
+    names and entry functions, and answers an unknown name as the JAX
+    dispatcher does (usage on stderr, exit 1)."""
+    from sequence_alignment_tools_tpu import __main__ as jax_main
+
     for tool, argv in (
             ("exact_match", ["-i", scan_files["db"], "-P",
                              scan_files["pats"], "-r"]),
@@ -192,12 +196,16 @@ def test_dispatcher(scan_files, monkeypatch, capsys):
         capsys.readouterr()
         assert torch_main.main() == 0
         assert capsys.readouterr().out == want
-    monkeypatch.setattr("sys.argv", ["sat"])
-    with contextlib.redirect_stderr(io.StringIO()) as err:
-        assert torch_main.main() == 1
-    names = err.getvalue().split("Tools:")[1].split()
-    assert len(names) == 16
-    monkeypatch.setattr("sys.argv", ["sat", "pairscan"])
-    with contextlib.redirect_stderr(io.StringIO()) as err:
-        assert torch_main.main() == 1
-    assert "not ported" in err.getvalue()
+    assert torch_main._TOOLS == jax_main._TOOLS
+    for argv in (["sat"], ["sat", "no_such_tool", "-h"]):
+        usage = []
+        for m in (jax_main, torch_main):
+            monkeypatch.setattr("sys.argv", argv)
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                assert m.main() == 1
+            usage.append(err.getvalue())
+        assert usage[1] == usage[0].replace(
+            "sequence_alignment_tools_tpu ",
+            "sequence_alignment_tools_tpu_torch ")
+        names = usage[1].split("Tools:")[1].split()
+        assert len(names) == 37 and names == sorted(jax_main._TOOLS)
