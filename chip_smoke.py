@@ -7,8 +7,8 @@ Builds the port's CUDA kernels from this checkout, holds each against its
 plain PyTorch version, then drives the port's main paths (exact, k = 1,
 k = 2 and ``-K 2`` primer_match, both strands; the 50,000-pattern exact
 batch and its k = 1 halves run; pcr_match; peptides over the six-frame
-translation; every other tool that reaches a scanner, through the CLI)
-at full size and checks their output:
+translation; every other tool that reaches a scanner, through the CLI;
+the same paths over a device mesh) at full size and checks their output:
 
 1. card: name and power limit, kernel build time;
 2. kernel against plain: ``scan_occupancy`` on the card equals
@@ -149,7 +149,19 @@ at full size and checks their output:
     inputs; each exit status and one invariant a tool checked, each wall
     logged, no process loading jax or the JAX package or initializing
     CUDA; walk_graph ``-O``'s min-cost flow against brute force on small
-    graphs.
+    graphs;
+19. the mesh (``parallel/``): over ``make_mesh([cuda:0] * 4)`` the exact
+    scan at 2^28, the k = 1 serving stream (the gated route per shard),
+    ``-k 2`` on the Sellers configuration (``sellers.cu`` per shard) and
+    the stream of 16 host blocks of 2^24 each equal their unsharded
+    results, with each kernel launched at least once a shard, one upload
+    a shard per database (none on a repeated run), and each wall beside
+    the unsharded one; then two ranks (``--mesh-rank``, this script run
+    as a worker, gloo on localhost, each on cuda:0) run the 2 x 2 node x
+    GPU mesh at 2^24: ``sharded_scan_counts_2d`` and
+    ``sharded_pallas_scan_hits_2d`` (also at cap 1) on both ranks equal
+    the unsharded stream.  One card shows what sharding costs, not a
+    speed-up.
 
 Every phase raises on a mismatch.  The line before the last is a JSON
 object with each kernel's launches on its main path, error, times and
@@ -2273,6 +2285,308 @@ def host_tools_phase(tmp, smi, entry_len=ENTRY):
         f"{HOST_CHARIO_N} bases, genome_simulation to {HOST_GENOME_N} bases")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the mesh on the card (parallel/shard.py, parallel/multihost.py)
+
+MESH_N = 4                # shards of the 1-D mesh, all on cuda:0
+MESH_RANKS = 2            # processes of the 2 x 2 node x GPU mesh
+MESH_RANK_TIMEOUT = 240   # seconds a rank may take, bring-up included
+
+
+def wall_median(fn, reps):
+    """(median host seconds of ``fn()`` after a warm-up call, its last
+    result), each call ended by a device synchronize."""
+    import torch
+
+    out = fn()
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs), out
+
+
+def mesh_rank_worker(rank, port, tmp):
+    """One rank of the 2 x 2 mesh (``chip_smoke.py --mesh-rank <rank>
+    <port> <dir>``): joins the gloo group on localhost, drives two
+    entries of cuda:0 over ``<dir>/codes.npy`` and writes its counts, hit
+    stream, launches and wall to ``<dir>/rank<rank>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(SAT_COORDINATOR=f"localhost:{port}",
+                      SAT_NUM_PROCESSES=str(MESH_RANKS),
+                      SAT_PROCESS_ID=str(rank))
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
+    from sequence_alignment_tools_tpu_torch.io.patterns import build_pattern_set
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        scan_occupancy,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.tables import (
+        build_tables,
+        device_tables,
+    )
+    from sequence_alignment_tools_tpu_torch.parallel.multihost import (
+        init_distributed,
+        make_host_chip_mesh,
+        shard_codes_2d,
+        sharded_pallas_scan_hits_2d,
+        sharded_scan_counts_2d,
+    )
+
+    got = init_distributed(timeout=MESH_RANK_TIMEOUT)
+    dev = torch.device("cuda", 0)
+    codes = np.load(os.path.join(tmp, "codes.npy"))
+    db = SeqDB(codes=codes, table=TABLE, entry_starts=np.array([0]),
+               entry_lengths=np.array([len(codes)]), headers=["block"])
+    tables = build_tables(build_pattern_set(PATS, rev_comp=True), db,
+                          wc=False, textn=False)
+    mesh = make_host_chip_mesh(devices=[dev, dev])
+    dt = device_tables(tables, 0, False, dev)
+    rows, _ = shard_codes_2d(codes, mesh, tables.Lmax - 1, EOS)
+    counts = sharded_scan_counts_2d(rows, dt.weights, dt.thresholds,
+                                    dt.lengths, tables.alpha, mesh)
+    sc = ConvScanner(tables, k=0, device=dev)
+    list(sharded_pallas_scan_hits_2d(sc, codes, mesh))
+    scan_occupancy.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = list(sharded_pallas_scan_hits_2d(sc, codes, mesh))
+    wall = time.perf_counter() - t0
+    launches = scan_occupancy.launches
+    sc1 = ConvScanner(tables, k=0, device=dev)
+    sc1._cap_mb = sc1._hit_cap = 1
+    hits1 = list(sharded_pallas_scan_hits_2d(sc1, codes, mesh))
+    dist.destroy_process_group()
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), got=np.array(got),
+             counts=counts.numpy(), hits=np.array(hits, np.int64),
+             hits1=np.array(hits1, np.int64), launches=launches, wall=wall)
+    return 0
+
+
+def mesh_ranks(smi, block, want):
+    """The 2 x 2 mesh across two processes on cuda:0: both ranks' counts
+    and hit streams against the unsharded stream ``want`` of ``block``.
+    Raises on a mismatch, a rank's non-zero exit or a hang past its
+    timeout; no rank outlives the call."""
+    import socket
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "codes.npy"), block)
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SAT_MESH")}
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(port), tmp], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for r in range(MESH_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH_RANK_TIMEOUT))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, (_out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"mesh rank {r} exited {p.returncode}: "
+                                   f"{err.decode(errors='replace')[-3000:]}")
+        span = time.perf_counter() - t0
+        want_arr = np.array(want, np.int64).reshape(-1, 3)
+        want_counts = np.bincount(want_arr[:, 1], minlength=2 * len(PATS))
+        res = {}
+        for r in range(MESH_RANKS):
+            d = np.load(os.path.join(tmp, f"rank{r}.npz"))
+            if tuple(d["got"]) != (r, MESH_RANKS):
+                raise AssertionError(f"rank {r}: init_distributed gave "
+                                     f"{tuple(d['got'])}")
+            if not np.array_equal(d["counts"], want_counts):
+                raise AssertionError(f"rank {r}: sharded_scan_counts_2d "
+                                     "differs from the unsharded hits")
+            for key in ("hits", "hits1"):
+                if not np.array_equal(d[key].reshape(-1, 3), want_arr):
+                    raise AssertionError(f"rank {r}: {key} of "
+                                         "sharded_pallas_scan_hits_2d "
+                                         "differs from the unsharded stream")
+            res[r] = (int(d["launches"]), float(d["wall"]))
+            if res[r][0] < MESH_N // MESH_RANKS:
+                raise AssertionError(f"rank {r} launched scan_occupancy "
+                                     f"{res[r][0]} times")
+    log(f"2 x 2 mesh across {MESH_RANKS} processes (gloo), each rank two "
+        f"entries of cuda:0, n=2^24, P=20 on {smi}: both ranks' counts "
+        f"== the unsharded hits per pattern, hit streams (and at cap 1) "
+        f"== the unsharded stream ({len(want)} hits); per rank "
+        f"scan_occupancy launches "
+        f"{[res[r][0] for r in range(MESH_RANKS)]}, scan wall "
+        f"{[round(res[r][1], 6) for r in range(MESH_RANKS)]} s; "
+        f"{span:.1f} s with bring-up")
+    return res
+
+
+def mesh_phase(smi, dev, db, ps, got, s_main, got1, s_k1, sdb, psl, gotl,
+               blocks, want_blocks, s_stream):
+    """Phase 19: each path of the main configurations over
+    ``make_mesh([cuda:0] * 4)`` equals its unsharded result, with its
+    launches (one a shard), uploads (one a shard per database) and wall
+    beside the unsharded wall; then the 2 x 2 mesh across two
+    processes."""
+    import torch
+
+    from sequence_alignment_tools_tpu_torch.models.primer_match import (
+        PrimerMatchModel,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import (
+        ConvScanner,
+        device_form,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
+        scan_occupancy,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.seed_gate import (
+        seed_gate,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
+        sellers_scan,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
+    from sequence_alignment_tools_tpu_torch.parallel import shard
+
+    mesh = shard.make_mesh([dev] * MESH_N)
+    codes = db.codes
+    summary = {}
+
+    def counted(label, fn, kernels, want, per_run):
+        """Run ``fn`` once with the counts at 0: its result must equal
+        ``want`` and each kernel launch at least once a shard (more on an
+        overflow retry); returns (launches, uploads)."""
+        uploads = device_form.uploads
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        launches = {k.__name__: k.launches for k in kernels}
+        if out != want:
+            raise AssertionError(f"mesh: {label} differs from unsharded")
+        if any(v < MESH_N * per_run for v in launches.values()):
+            raise AssertionError(f"mesh: {label} launches {launches}, "
+                                 f"want {MESH_N * per_run} each at least")
+        return launches, device_form.uploads - uploads
+
+    # the exact main path at 2^28, P = 20
+    sc = ConvScanner(build_tables(ps, db, wc=False, textn=False), k=0,
+                     device=dev)
+    sc.mesh = mesh
+    launches, uploads = counted("exact scan, 2^28", lambda: list(
+        sc.scan(codes)), [scan_occupancy], got, 1)
+    wall, _ = wall_median(lambda: sum(1 for _ in sc.scan(codes)), 5)
+    again = device_form.uploads
+    list(sc.scan(codes))
+    if uploads != MESH_N or device_form.uploads != again:
+        raise AssertionError(f"mesh: exact scan uploaded {uploads}, then "
+                             f"{device_form.uploads - again}")
+    s0 = shard._shards_form(codes, mesh, sc.tables.Lmax - 1, EOS)[0]
+    dt = sc._tables_dev()
+    shard_ms = cuda_ms(lambda: scan_occupancy(
+        s0.codes, dt.weights16, dt.thresholds, s0.n, EOS), reps=10)
+    summary["exact 2^28"] = dict(launches=launches, uploads=uploads,
+                                 wall_s=wall, unsharded_s=s_main,
+                                 shard_kernel_ms=shard_ms)
+    log(f"mesh exact scan, n=2^28 over {MESH_N} x cuda:0, P=20 on {smi}: "
+        f"{len(got)} hits == unsharded; launches {launches}, uploads "
+        f"{uploads} (then 0 per scan); {wall:.6f} s per scan against "
+        f"{s_main:.6f} unsharded (host clock, median of 5); "
+        f"scan_occupancy per 2^26 shard {shard_ms:.4f} ms (CUDA events)")
+
+    # the k = 1 serving stream: the halves engine's gated route per shard
+    m1 = PrimerMatchModel(db, ps, k=1, indels=True, device=dev, mesh=mesh)
+    uploads0 = device_form.uploads
+    launches, _u = counted("k=1 engine_hits, 2^28", lambda: list(
+        m1.engine_hits()), [scan_occupancy, seed_gate], got1, 1)
+    runs = list(m1.engine_hits_stream(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = list(m1.engine_hits_stream(5))
+    s_k1m = (time.perf_counter() - t0) / 5
+    uploads = device_form.uploads - uploads0
+    if runs != [got1] * 5 or uploads != MESH_N:
+        raise AssertionError(f"mesh: k=1 stream differs or uploaded "
+                             f"{uploads}")
+    summary["k=1 stream 2^28"] = dict(launches=launches, uploads=uploads,
+                                      wall_s=s_k1m, unsharded_s=s_k1)
+    log(f"mesh k=1 engine_hits_stream (halves, gated route per shard), "
+        f"n=2^28 over {MESH_N} x cuda:0 on {smi}: {len(got1)} engine hits "
+        f"== unsharded per run; launches per run {launches}, uploads "
+        f"{uploads} for 7 runs; {s_k1m:.6f} s per run against "
+        f"{s_k1:.6f} unsharded (host clock, 5 runs)")
+
+    # -k 2 on the Sellers configuration: sellers.cu per shard
+    ml = PrimerMatchModel(sdb, psl, k=2, indels=True, device=dev, mesh=mesh)
+    mu = PrimerMatchModel(sdb, psl, k=2, indels=True, device=dev, mesh=None)
+    mu.use_host = False
+    launches, uploads = counted("Sellers route -k 2, 2^26", lambda: list(
+        ml.engine_hits()), [sellers_scan], gotl, 1)
+    wall, _ = wall_median(lambda: list(ml.engine_hits()), 3)
+    wall_u, hits_u = wall_median(lambda: list(mu.engine_hits()), 3)
+    if hits_u != gotl:
+        raise AssertionError("mesh: the unsharded Sellers route changed")
+    scl = ml._filter_ctx()[0]
+    s0 = shard._shards_form(sdb.codes, mesh, 0, EOS,
+                            scl.tables.Lmax + 2)[1]
+    st = scl._sellers_t()
+    cap = scl._cap("sellers", s0.n)
+    shard_ms = cuda_ms(lambda: sellers_scan(s0.codes, s0.n, st, EOS, 2,
+                                            True, cap), reps=5)
+    summary["Sellers -k 2 2^26"] = dict(launches=launches, uploads=uploads,
+                                        wall_s=wall, unsharded_s=wall_u,
+                                        shard_kernel_ms=shard_ms)
+    log(f"mesh Sellers route -k 2 (sellers.cu per shard), n=2^26, P=48 "
+        f"over {MESH_N} x cuda:0 on {smi}: {len(gotl)} engine hits == "
+        f"unsharded; launches {launches}, uploads {uploads}; engine_hits "
+        f"{wall:.6f} s against {wall_u:.6f} unsharded (the pairs route, "
+        f"host clock, median of 3); sellers_scan per shard (2^24 and a "
+        f"left halo) {shard_ms:.4f} ms (CUDA events)")
+
+    # the streamed path: 16 host blocks of 2^24, and one resident block
+    sb = ConvScanner(sc.tables, k=0, device=dev)
+    sb.mesh = mesh
+    uploads0 = device_form.uploads
+    scan_occupancy.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_blocks = dict(sb.scan_stream(iter(blocks)))
+    wall = time.perf_counter() - t0
+    launches = scan_occupancy.launches
+    uploads = device_form.uploads - uploads0
+    if [got_blocks[i] for i in range(len(blocks))] != want_blocks:
+        raise AssertionError("mesh: scan_stream differs from unsharded")
+    if launches < MESH_N * len(blocks) or uploads != MESH_N * len(blocks):
+        raise AssertionError(f"mesh: stream launches {launches}, uploads "
+                             f"{uploads}")
+    summary["stream 16 x 2^24"] = dict(
+        launches={"scan_occupancy": launches}, uploads=uploads,
+        wall_s=wall, unsharded_s=s_stream)
+    log(f"mesh scan_stream, 16 x 2^24 host blocks over {MESH_N} x cuda:0 "
+        f"on {smi}: == unsharded per block; launches {launches}, uploads "
+        f"{uploads}; {wall:.6f} s against {s_stream:.6f} unsharded "
+        f"(uploads included)")
+
+    summary["2 x 2 ranks 2^24"] = mesh_ranks(smi, blocks[0].copy(),
+                                            want_blocks[0])
+    log("mesh summary: " + json.dumps(summary, default=str))
+    del sc, sb, m1, ml, mu
+    return summary
+
+
 def main():
     import torch
 
@@ -3620,6 +3934,12 @@ def main():
         host_tools_phase(tmp, smi)
         log(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
+    # 19. the mesh on the card: four shards on cuda:0, then two ranks
+    t0 = time.perf_counter()
+    mesh_phase(smi, dev, db, ps, got, s_main, got1, s_k1 / 5, sdb, psl,
+               gotl, blocks, want_blocks, s_stream)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"
     tpu = "sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py"
@@ -3749,4 +4069,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_worker(int(sys.argv[2]), sys.argv[3],
+                                  sys.argv[4]))
     sys.exit(main())

@@ -23,6 +23,14 @@ take, and ``-K``), and the seed-table engines ``hash`` (hash_table) and
   candidates from the poisoned scan (``ConvScanner`` under ``-K``), then
   runs the reference's batch / cluster / verify host tail.
 
+Under a mesh (``mesh="auto"``: ``SAT_MESH``, or every GPU when more than
+one is visible; :mod:`..parallel.shard`) every scanner gets the mesh and
+scans per position shard: the exact scans and streams through the fused
+route, the pigeonhole seeds through the gated route (up to 2,048 seeds;
+more take the census unsharded), the k-edit filter engine through
+``SellersScanner.scan`` (Myers and the pairs routes are not sharded, as
+in the JAX model).
+
 The jax-free parts of the JAX module (engine selection, the verbose
 reports, ``Hit``) are the port's copies.
 """
@@ -287,13 +295,21 @@ class PrimerMatchModel:
         seedlen: int = 0,
         node: int = 0,
         report_interval: int = 1000,
-        mesh=None,
+        mesh="auto",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded models are not ported yet (ROADMAP queue 1 item 11)")
-        self.mesh = None
+        if mesh == "auto":
+            # the cached no-mesh answer first: a host-routed one-shot run
+            # must not ask the CUDA driver for its device count
+            from ..parallel.devcache import peek_no_mesh
+
+            if peek_no_mesh():
+                mesh = None
+            else:
+                from ..parallel.shard import auto_mesh
+
+                mesh = auto_mesh(device=device)
+        self.mesh = mesh
         self.db = db
         self.ps = ps
         self.k = k
@@ -305,7 +321,9 @@ class PrimerMatchModel:
         self.seedlen = seedlen
         self.node = node
         self.engine = select_engine(db, ps, k, wc, seedlen, node)
-        self.device = resolve_device(device)
+        # the unsharded rungs run on the mesh's first device
+        self.device = (mesh.devices[0] if mesh is not None and device is None
+                       else resolve_device(device))
         # verbose-mode progress reporter, attached to every scanner
         self.progress = None
         eos = chr(db.eos_char)
@@ -359,6 +377,8 @@ class PrimerMatchModel:
         scanner.progress = self.progress
         if self.use_host is not None:
             scanner.use_host = self.use_host
+        if self.mesh is not None:
+            scanner.mesh = self.mesh
         return scanner
 
     def _text_at(self, start: int, length: int) -> str:
@@ -451,6 +471,16 @@ class PrimerMatchModel:
                 for _ in range(reps):
                     yield list(self.engine_hits())
                 return
+            if not self._mesh_gated_ok(scanner):
+                # more seeds than the sharded gated route takes: the
+                # per-run engine, its seed scan the census unsharded
+                scanner._route(
+                    "sharded gated slots INELIGIBLE (P=%d, Lmax=%d): "
+                    "per-run engine (census seed scan) under the mesh"
+                    % (scanner.tables.P, scanner.tables.Lmax))
+                for _ in range(reps):
+                    yield list(self.engine_hits())
+                return
             gate = self._engine_gate(scanner, dirs, ext_pats, geomB,
                                      _hid_of)
             lut = self._hid_lut(scanner, _hid_of)
@@ -458,6 +488,11 @@ class PrimerMatchModel:
                     (codes for _ in range(reps)), gate, self.indels,
                     self.k):
                 yield list(emit(anchors, lut[sids0]))
+            return
+        if self.engine in ("hash", "gs"):
+            # the seed-table engines verify per run, as the JAX model's
+            for _ in range(reps):
+                yield list(self.engine_hits())
             return
         _tables, scanner = self._exact_ctx()
         emit = (self._suftree_emit if self.engine == "suftree"
@@ -607,7 +642,8 @@ class PrimerMatchModel:
         seed id; ``hid_of`` maps the scanner's 0-based pattern index to
         that id."""
         codes = self.db.codes
-        if self._gated(scanner, len(codes)):
+        if self._gated(scanner, len(codes)) \
+                and self._mesh_gated_ok(scanner):
             gate = self._engine_gate(scanner, dirs, ext_pats, geomB, hid_of)
             anchors, sids0 = scanner.scan_gated(codes, gate, self.indels,
                                                 self.k)
@@ -688,6 +724,14 @@ class PrimerMatchModel:
     def _gated(self, scanner, n: int) -> bool:
         """Whether a pigeonhole engine takes ``scanner.scan_gated``."""
         return scanner.gated_available(n) and self._gate_faithful()
+
+    @staticmethod
+    def _mesh_gated_ok(scanner) -> bool:
+        """Under a mesh the gated route is the sharded one, which takes
+        at most ``_PBLOCK`` seeds (the JAX ``mesh_ok``); more go to the
+        census unsharded."""
+        mesh = scanner.mesh
+        return mesh is None or mesh.size <= 1 or scanner._sharded_capable()
 
     def _engine_gate(self, scanner, dirs, ext_pats, geomB, hid_of):
         """Extension :class:`GateTables` of a pigeonhole engine, indexed
@@ -974,7 +1018,8 @@ class PrimerMatchModel:
                                     len(hits))
                 yield list(self._filter_emit(sends, spids))
             return
-        if self.use_host or not scanner.kernel_available(len(codes)):
+        if self.use_host or scanner.mesh is not None \
+                or not scanner.kernel_available(len(codes)):
             for _ in range(reps):
                 yield list(self.engine_hits())
             return
@@ -1035,14 +1080,17 @@ class PrimerMatchModel:
         """filter_bitvec (filter_bitvec.cc:73-183): the k-edit candidate
         set from the native Sellers rows (small scans) or the device
         kernels, or the k-mismatch scan under ``-K``, then the reference's
-        batch / cluster / defer host tail (:meth:`_filter_emit_rounds`)."""
+        batch / cluster / defer host tail (:meth:`_filter_emit_rounds`).
+        Under a mesh the candidates come from ``scanner.scan`` (Sellers
+        per shard)."""
         scanner, _verifier = self._filter_ctx()
         codes = self.db.codes
-        if self.indels and scanner._host_eligible(len(codes)):
+        if self.indels and scanner.mesh is None \
+                and scanner._host_eligible(len(codes)):
             scanner._route("native Sellers row machine "
                            "(one-shot latency path)")
             sends, spids = scanner.host_pairs(codes)
-        elif self.indels and not self.use_host \
+        elif self.indels and scanner.mesh is None and not self.use_host \
                 and scanner.kernel_available(len(codes)):
             sends, spids = scanner.scan_pairs(codes)
         else:

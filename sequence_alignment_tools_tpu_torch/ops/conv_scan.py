@@ -13,7 +13,13 @@ with ``W`` the conv weights (EOS poison under ``poison_eos``).
 
 1. stream-whole: arrays past ``_RESIDENT_MAX`` (or memory-mapped past
    ``_STREAM_BLOCK``) scan as halo'd blocks through :meth:`scan_stream`;
-2. sharded: not ported (ROADMAP queue 1 item 11), raises;
+2. sharded: under a mesh of more than one entry (``mesh``, attached by
+   the model layer), every scan of at most ``_PBLOCK`` patterns runs the
+   fused route (rung 6) per position shard
+   (:func:`..parallel.shard.sharded_pallas_scan_hits`); explicit
+   multi-device intent wins over the host rung, as in the JAX ladder.
+   Larger pattern sets take rungs 4 and 5 unsharded on the scanner's
+   device, and the route line says so;
 3. host: the native shift-and machine (:class:`.host_scan.HostShiftAnd`,
    the port's copy of the JAX package's) for small scans;
 4. census, for dense exact seeds and for literal pattern sets past
@@ -130,7 +136,9 @@ class ConvScanner:
 
     # per-block progress callback (frac in (0, 1]), attached by the model
     progress = None
-    # only None is supported: a mesh means the sharded rungs
+    # a parallel.shard.Mesh attached by the model layer (auto_mesh:
+    # SAT_MESH, or every GPU when more than one is visible); scans route
+    # through the sharded rungs while the fused route would serve them
     mesh = None
     # tri-state: None = auto (small scans), False = never, True = whenever
     # the native machine can represent the patterns
@@ -156,6 +164,7 @@ class ConvScanner:
         self._mer_gpack_c = None
         self._mer_pack_cc = None
         self._pblock_subs_c = None
+        self._dt_more = None
 
     def _tables_dev(self):
         if self._dt is None:
@@ -183,11 +192,34 @@ class ConvScanner:
 
         timestamp("Route: " + msg)
 
-    def _check_mesh(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "sharded scans over a device mesh are not ported yet "
-                "(ROADMAP queue 1 item 11)")
+    def _sharded_capable(self) -> bool:
+        """Whether the scans run per position shard: a mesh of more than
+        one entry and a pattern set the fused route takes.  (The JAX
+        scanner also required Lmax <= 128, a TPU envelope that the one
+        device route does not have.)"""
+        return (self.mesh is not None and self.mesh.size > 1
+                and self.tables.P <= self._PBLOCK)
+
+    def _unsharded(self) -> str:
+        """The route line's note for a rung that runs unsharded under a
+        mesh."""
+        if self.mesh is None or self.mesh.size <= 1:
+            return ""
+        return "; unsharded on %s under a %d-entry mesh" % (
+            self.device, self.mesh.size)
+
+    def _tables_on(self, device: torch.device):
+        """The device tables on ``device``: the scanner's own, or a copy
+        per other device of its mesh."""
+        dt = self._tables_dev()
+        if dt.weights.device == device:
+            return dt
+        if self._dt_more is None:
+            self._dt_more = {}
+        if device not in self._dt_more:
+            self._dt_more[device] = device_tables(
+                self.tables, self.k, self.poison_eos, device)
+        return self._dt_more[device]
 
     # -- candidate-buffer sizing --------------------------------------------
 
@@ -215,8 +247,8 @@ class ConvScanner:
     # -- the fused device route ---------------------------------------------
 
     def _dispatch(self, codes_dev, n: int, cap_mb: int, hit_cap: int):
-        return scan_hits(codes_dev, n, self._tables_dev(), self._eos,
-                         cap_mb, hit_cap, self._MB)
+        return scan_hits(codes_dev, n, self._tables_on(codes_dev.device),
+                         self._eos, cap_mb, hit_cap, self._MB)
 
     def _decode_packed(self, packed, codes_dev, n: int, caps=None):
         """Decode a fetched packed row, retrying with larger caps on
@@ -288,7 +320,13 @@ class ConvScanner:
         if depth is None:
             depth = self._STREAM_DEPTH
         depth = max(int(depth), 1)
-        self._check_mesh()
+        if self._sharded_capable():
+            from ..parallel.shard import sharded_scan_stream
+
+            self._route("sharded pipelined scan stream over %d devices"
+                        % self.mesh.size)
+            yield from sharded_scan_stream(self, blocks, self.mesh, depth)
+            return
         if self.tables.P > self._PBLOCK:
             # huge pattern sets stream block by block through the census
             # or the pattern-blocked scan (itself pipelined across passes)
@@ -318,7 +356,7 @@ class ConvScanner:
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(packed.device))
         return host, ev
 
     def _drain(self, item):
@@ -383,29 +421,39 @@ class ConvScanner:
     def gated_available(self, n: int) -> bool:
         """Whether :meth:`scan_gated` takes a seed scan of ``n``
         positions: every scan over a resident array that the host rung
-        does not take, of at most ``_PBLOCK`` seeds (the fused route) or of
-        more literal seeds on a device census (the slots route), over an
-        alphabet the gate tables hold."""
-        return (self.mesh is None and n <= self._RESIDENT_MAX
-                and self.gate_alphabet_ok()
-                and not self._host_eligible(n)
+        does not take (under a mesh the sharded route takes it instead),
+        of at most ``_PBLOCK`` seeds (the fused route) or of more literal
+        seeds on a device census (the slots route), over an alphabet the
+        gate tables hold."""
+        host = not self._sharded_capable() and self._host_eligible(n)
+        return (n <= self._RESIDENT_MAX and self.gate_alphabet_ok()
+                and not host
                 and (self.tables.P <= self._PBLOCK or self._slots_ok()))
 
-    def _gate_dev(self, gt):
-        """``gt`` on the scanner's device, kept for the last gate seen."""
+    def _gate_on(self, gt, device: torch.device):
+        """``gt`` on ``device``, kept for the last gate seen (one copy
+        per device of the mesh)."""
         if self._gt_dev is None or self._gt_dev[0] is not gt:
-            self._gt_dev = (gt, gt.to(self.device))
-        return self._gt_dev[1]
+            self._gt_dev = (gt, {})
+        per = self._gt_dev[1]
+        if device not in per:
+            per[device] = gt.to(device)
+        return per[device]
 
-    def _gated_dispatch(self, codes_dev, n: int, gt_dev, indels: bool,
+    def _gate_dev(self, gt):
+        """``gt`` on the scanner's device."""
+        return self._gate_on(gt, self.device)
+
+    def _gated_dispatch(self, codes_dev, n: int, gt, indels: bool,
                         caps, slots: bool):
+        gt_dev = self._gate_on(gt, codes_dev.device)
         if slots:
             return slot_gated_hits(codes_dev, n, self._mer_dev(), gt_dev,
                                    indels, *caps)
-        return gated_hits(codes_dev, n, self._tables_dev(), gt_dev,
-                          self._eos, indels, *caps)
+        return gated_hits(codes_dev, n, self._tables_on(codes_dev.device),
+                          gt_dev, self._eos, indels, *caps)
 
-    def _gated_decode(self, packed, codes_dev, n: int, gt_dev, indels: bool,
+    def _gated_decode(self, packed, codes_dev, n: int, gt, indels: bool,
                       caps, slots: bool):
         """(anchors int64, sids int32) from a fetched gated row, retrying
         with the overflowed cap grown past its true count."""
@@ -419,16 +467,17 @@ class ConvScanner:
                 self._slot_cap = max(self._slot_cap, self._pow2(first))
             self._gsurv_cap = max(self._gsurv_cap, self._pow2(count))
             caps = self._gated_caps(n, slots)
-            packed = self._gated_dispatch(codes_dev, n, gt_dev, indels, caps,
+            packed = self._gated_dispatch(codes_dev, n, gt, indels, caps,
                                           slots)
             return self._gated_decode(packed.cpu().numpy(), codes_dev, n,
-                                      gt_dev, indels, caps, slots)
+                                      gt, indels, caps, slots)
         cap = caps[1]
         return (packed[2 : 2 + count].astype(np.int64),
                 packed[2 + cap : 2 + cap + count].astype(np.int32))
 
     def _gated_gate(self, gate, k: int, slots: bool):
-        self._check_mesh()
+        """The gate's :class:`..gate.GateTables`, checked against the scan
+        and its route named."""
         gt = gate.t if hasattr(gate, "t") else gate
         if gt.k != k:
             raise ValueError(f"gate tables built for k={gt.k}, scan asks "
@@ -439,10 +488,14 @@ class ConvScanner:
                 "device census: ask gated_available first"
                 % (self.tables.P, self._PBLOCK))
         on = "CUDA" if self.device.type == "cuda" else "plain PyTorch, CPU"
-        self._route(("gated seed census + slot gate (%d seeds; %s)"
-                     % (self.tables.P, on)) if slots
-                    else "gated seed scan + extension gate (%s)" % on)
-        return self._gate_dev(gt)
+        if self._sharded_capable():
+            self._route("gated seed scan + extension gate (%s) sharded over "
+                        "%d devices" % (on, self.mesh.size))
+        else:
+            self._route(("gated seed census + slot gate (%d seeds; %s%s)"
+                         % (self.tables.P, on, self._unsharded())) if slots
+                        else "gated seed scan + extension gate (%s)" % on)
+        return gt
 
     def scan_gated(self, codes: np.ndarray, gate, indels: bool, k: int):
         """One gated seed scan: (anchors [C] int64, sids [C] int32), every
@@ -461,14 +514,21 @@ class ConvScanner:
         host memory behind its event.  At most ``_PBLOCK`` seeds take the
         fused route (filter, ``seed_gate``), more take the slots route
         (``scan_slots``, ``gate_slots``).  Yields (block_index, anchors,
-        sids) in order."""
+        sids) in order.  Under a mesh the fused route runs per position
+        shard (:func:`..parallel.shard.sharded_gated_stream`)."""
+        if self._sharded_capable():
+            from ..parallel.shard import sharded_gated_stream
+
+            return sharded_gated_stream(self, blocks, gate, indels, k,
+                                        self.mesh,
+                                        depth or self._STREAM_DEPTH)
         return self._gated_stream(blocks, gate, indels, k, depth,
                                   self.tables.P > self._PBLOCK)
 
     def _gated_stream(self, blocks, gate, indels: bool, k: int, depth,
                       slots: bool):
         depth = max(int(depth or self._STREAM_DEPTH), 1)
-        gt_dev = self._gated_gate(gate, k, slots)
+        gt = self._gated_gate(gate, k, slots)
         pending = deque()
         for i, codes in enumerate(blocks):
             n = len(codes)
@@ -477,23 +537,23 @@ class ConvScanner:
             else:
                 dev = device_form(codes, self.device)
                 caps = self._gated_caps(n, slots)
-                packed = self._gated_dispatch(dev, n, gt_dev, indels, caps,
+                packed = self._gated_dispatch(dev, n, gt, indels, caps,
                                               slots)
                 host, ev = self._to_host(packed)
                 pending.append((i, host, ev, dev, n, caps))
             if len(pending) >= depth:
-                yield self._gated_drain(pending.popleft(), gt_dev, indels,
+                yield self._gated_drain(pending.popleft(), gt, indels,
                                         slots)
         while pending:
-            yield self._gated_drain(pending.popleft(), gt_dev, indels, slots)
+            yield self._gated_drain(pending.popleft(), gt, indels, slots)
 
-    def _gated_drain(self, item, gt_dev, indels: bool, slots: bool):
+    def _gated_drain(self, item, gt, indels: bool, slots: bool):
         i, host, ev, dev, n, caps = item
         if host is None:
             return i, np.zeros(0, np.int64), np.zeros(0, np.int32)
         if ev is not None:
             ev.synchronize()
-        return (i,) + self._gated_decode(host.numpy(), dev, n, gt_dev,
+        return (i,) + self._gated_decode(host.numpy(), dev, n, gt,
                                          indels, caps, slots)
 
     # -- host machine --------------------------------------------------------
@@ -806,14 +866,14 @@ class ConvScanner:
         the CPU the native census (with its inline ``gate``), or numpy."""
         t = self.tables
         if self.census_on_device():
-            self._route("census kernel (%d patterns; %s)" % (
+            self._route("census kernel (%d patterns; %s%s)" % (
                 t.P, "CUDA" if self.device.type == "cuda"
-                else "plain PyTorch, CPU"))
+                else "plain PyTorch, CPU", self._unsharded()))
             return self._census_device(codes, n, sort)
         native = self._mer_native(codes, n, sort=sort, gate=gate)
         if native is not None:
             self._route("native threaded mer-hash census "
-                        "(%d patterns)" % t.P)
+                        "(%d patterns%s)" % (t.P, self._unsharded()))
             return native
         self._route("host radix-code census (numpy)")
         cN = np.asarray(codes).astype(np.int64)
@@ -984,16 +1044,30 @@ class ConvScanner:
 
     def scan(self, codes: np.ndarray):
         """Iterate candidate tuples over the whole array (host generator)."""
-        self._check_mesh()
         if self._stream_whole(codes):
-            self._route("streamed block scan (DB >> RAM)")
+            self._route(
+                "streamed block scan (DB >> RAM)"
+                + (", sharded over %d devices" % self.mesh.size
+                   if self._sharded_capable() else ""))
             yield from self._scan_flat_stream(codes)
+            return
+        if self._sharded_capable():
+            # explicit multi-device intent wins over the host rung: every
+            # shard runs the fused route
+            from ..parallel.shard import sharded_pallas_scan_hits
+
+            self._route("fused %s scan pipeline sharded over %d devices"
+                        % ("CUDA" if self.device.type == "cuda"
+                           else "plain PyTorch", self.mesh.size))
+            yield from sharded_pallas_scan_hits(self, codes, self.mesh)
+            if self.progress:
+                self.progress(1.0)
             return
         n = len(codes)
         est = self._expected_hits(n)
         if self._host_eligible(n):
             self._route("native shift-and host machine "
-                        "(one-shot latency path)")
+                        "(one-shot latency path%s)" % self._unsharded())
             yield from self._host_scanner.scan(
                 codes, cap_hint=int(est * 4) + 1024)
             if self.progress:
@@ -1010,8 +1084,9 @@ class ConvScanner:
             return
         if self.tables.P > self._PBLOCK:
             self._route("pattern-blocked scan pipeline (%d patterns, %d "
-                        "blocks)" % (self.tables.P,
-                                     -(-self.tables.P // self._PBLOCK)))
+                        "blocks%s)" % (self.tables.P,
+                                       -(-self.tables.P // self._PBLOCK),
+                                       self._unsharded()))
             yield from self._scan_pblocked(codes)
             if self.progress:
                 self.progress(1.0)

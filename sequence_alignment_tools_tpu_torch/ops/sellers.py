@@ -17,7 +17,11 @@ mindist <= k.  Routes:
   field, is longer than k, and the packed words fit the kernel's
   registers (indels only: it is the Levenshtein recurrence);
 - device, otherwise: the Sellers row-DP kernel
-  (:func:`.cuda.sellers.sellers_scan`).
+  (:func:`.cuda.sellers.sellers_scan`);
+- under a mesh (``mesh``, attached by the model layer) :meth:`scan` runs
+  the Sellers kernel per position shard
+  (:func:`..parallel.shard.sharded_sellers_scan`), as the JAX scanner
+  does; Myers is not sharded.
 
 Both kernels emit every hitting pattern at every boundary, so the JAX
 scanner's escapes (``rescan_boundaries``), its TPU layouts
@@ -56,6 +60,8 @@ class SellersScanner:
 
     # optional per-scan progress callback (frac in (0, 1])
     progress = None
+    # a parallel.shard.Mesh attached by the model layer: scan() shards
+    mesh = None
     # tri-state like ConvScanner.use_host: None = auto (route small scans
     # to the native machine), False = pin the device route
     use_host = None
@@ -69,6 +75,7 @@ class SellersScanner:
         self._routes_done = None
         self._my_c = None
         self._sel_c = None
+        self._sel_more = None
 
     def _route(self, msg: str) -> None:
         """Name the route taken, once per scanner, as a '-v' line
@@ -120,6 +127,18 @@ class SellersScanner:
             self._sel_c = sellers_tables(self.tables).to(self.device)
         return self._sel_c
 
+    def _sellers_on(self, device: torch.device):
+        """The Sellers tables on ``device``: the scanner's own, or a copy
+        per other device of its mesh."""
+        st = self._sellers_t()
+        if st.peq.device == device:
+            return st
+        if self._sel_more is None:
+            self._sel_more = {}
+        if device not in self._sel_more:
+            self._sel_more[device] = st.to(device)
+        return self._sel_more[device]
+
     def myers_available(self, n: int) -> bool:
         """Whether the Myers kernel takes this scan: the Levenshtein
         recurrence (indels), every pattern at most 31 long (one field of a
@@ -151,8 +170,8 @@ class SellersScanner:
         if kind == "myers":
             return myers_pairs(codes_dev, n, self._myers_t(), eos, self.k,
                                cap)
-        return sellers_scan(codes_dev, n, self._sellers_t(), eos, self.k,
-                            self.indels, cap)
+        return sellers_scan(codes_dev, n, self._sellers_on(codes_dev.device),
+                            eos, self.k, self.indels, cap)
 
     def _kind(self, n: int) -> str:
         if self.myers_available(n):
@@ -251,9 +270,20 @@ class SellersScanner:
 
     def scan(self, codes: np.ndarray):
         """Iterate (end, pid, mindist) over the whole array, ordered by
-        (end, pattern): the native machine when pinned to the host
-        (``use_host = True``) and eligible, else the Sellers kernel, which
-        reports each candidate's distance."""
+        (end, pattern): under a mesh the Sellers kernel per position shard;
+        the native machine when pinned to the host (``use_host = True``)
+        and eligible; else the Sellers kernel, which reports each
+        candidate's distance."""
+        if self.mesh is not None and self.mesh.size > 1:
+            from ..parallel.shard import sharded_sellers_scan
+
+            self._route("Sellers row-DP k-edit %s sharded over %d devices"
+                        % ("CUDA kernel" if self.device.type == "cuda"
+                           else "scan (plain PyTorch)", self.mesh.size))
+            yield from sharded_sellers_scan(self, codes, self.mesh)
+            if self.progress:
+                self.progress(1.0)
+            return
         if self.use_host is True and self._host_eligible(len(codes)):
             self._route("native Sellers row machine (host)")
             ends, pids, dist = self._host_scanner.pairs(np.asarray(codes))

@@ -48,7 +48,8 @@ def _tail_worker(conn, spec):
         model = PrimerMatchModel(
             db, ps, k=spec["k"], indels=spec["indels"], wc=spec["wc"],
             textn=spec["textn"], dna_mut=spec["dna_mut"],
-            report_interval=spec["report_interval"], device="cpu")
+            report_interval=spec["report_interval"], mesh=None,
+            device="cpu")
         if model.engine != "filter":
             model._cluster_aligner = EditDistAligner(
                 spec["k"], chr(db.eos_char), spec["wc"], spec["textn"],

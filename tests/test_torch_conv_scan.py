@@ -18,6 +18,7 @@ from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
 from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
     scan_occupancy,
 )
+from sequence_alignment_tools_tpu_torch.parallel.shard import make_mesh
 from tests.test_torch_scan_kernel import PATS, planted_db
 
 
@@ -166,15 +167,16 @@ def test_wide_alphabet_matches_xla_path(monkeypatch):
 
 
 def test_waiting_rungs_raise(db):
-    """Only the sharded rungs still raise; dense seeds past 2^18
-    positions, which used to, take the census rung."""
+    """No rung raises any more: under a mesh the scan and the stream run
+    per position shard (the sharded rungs) and equal the XLA path; dense
+    seeds past 2^18 positions, which used to raise, take the census
+    rung."""
     tables = _tables(db)
     meshed = _fused(tables, 0)
-    meshed.mesh = object()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        list(meshed.scan(db.codes))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        list(meshed.scan_stream([db.codes]))
+    meshed.mesh = make_mesh(["cpu"] * 3)
+    want = _want(tables, 0, db.codes)
+    assert list(meshed.scan(db.codes)) == want
+    assert list(meshed.scan_stream([db.codes])) == [(0, want)]
     big = np.tile(db.codes, 5)  # 300k positions of dense 4-mer seeds
     seeds = _tables(db, [p[:4] for p in PATS], rev_comp=False)
     dense = ConvScanner(seeds, k=0, device="cpu")

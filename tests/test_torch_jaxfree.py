@@ -13,8 +13,10 @@ xmers and allvall (a model or a scanner per batch or chunk), for one
 tool of each host stack (kmer_count, pairscan, ``walk_graph -O``,
 Xspace) against the JAX app's bytes, and for every one of the 21 tools
 that reach no scanner in one interpreter that first imports each of
-their 19 modules; a source scan checks every file of the package,
-``chip_smoke.py`` and ``kernel_probe.py``.
+their 19 modules, and for primer_match sharded over a 4-entry CPU mesh
+after importing the three ``parallel`` modules of the mesh; a source
+scan checks every file of the package, ``chip_smoke.py`` and
+``kernel_probe.py``.
 """
 
 import contextlib
@@ -377,6 +379,51 @@ def test_sitless_host_stack_never_imports_jax(tmp_path, tool):
 
 # an import of the JAX package: a module path that starts with its name
 # and does not go on with "_torch"
+PARALLEL_MODULES = ("parallel.shard", "parallel.multihost",
+                    "parallel.devcache")
+
+
+@pytest.mark.parametrize("flags", [["-r"], ["-k", "1", "-r"]],
+                         ids=["k0", "k1"])
+def test_sitless_mesh_never_imports_jax(tmp_path, capsys, monkeypatch,
+                                        flags):
+    """The parallel modules import, and primer_match runs sharded over a
+    4-entry CPU mesh (``SAT_MESH=4``), in a site-less interpreter that
+    loads neither jax nor the JAX package; its bytes are the JAX app's
+    single-device bytes."""
+    import json
+
+    fasta = str(tmp_path / "db.fasta")
+    make_synthetic_fasta(fasta, total=40_000, seed=9,
+                         planted=[(1200, "ACGTTGCAGGTACCA"),
+                                  (19_995, "ACGTTGCAGGTACCA"),
+                                  (30_010, "TGGTACCTGCAACGT")])
+    pats = tmp_path / "p.txt"
+    pats.write_text("ACGTTGCAGGTACCA\nGATTACAGATTACA\n")
+    argv = ["-i", fasta, "-P", str(pats)] + flags
+    plan = tmp_path / "runs.json"
+    plan.write_text(json.dumps([["primer_match"] + argv]))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env.update(SAT_DEVICE="cpu", SAT_HOST_SCAN="0", SAT_MESH="4",
+               SAT_ROUTE_VERBOSE="1")
+    r = subprocess.run(
+        [sys.executable, "-S", "-c", BOOT_MANY, str(REPO), str(plan),
+         json.dumps(PARALLEL_MODULES)],
+        capture_output=True, timeout=300, env=env, cwd=str(tmp_path))
+    err = r.stderr.decode(errors="replace")
+    assert r.returncode == 0 and "rc primer_match=0" in err, err[-1500:]
+    assert "sharded over 4 devices" in err, err[-1500:]
+    assert "jax_imported=False jax_package_imported=False" in err, err[-1500:]
+    monkeypatch.setenv("SAT_HOST_SCAN", "0")
+    monkeypatch.setenv("SAT_MESH", "0")
+    capsys.readouterr()
+    jax_app.main(argv)
+    want = capsys.readouterr().out
+    assert want.count("\n") >= 2
+    assert r.stdout.decode() == want
+
+
 JAX_PKG_IMPORT = re.compile(
     r"^\s*(from|import)\s+sequence_alignment_tools_tpu(?!_torch)\b",
     re.MULTILINE)
@@ -393,7 +440,8 @@ def test_no_file_imports_jax():
                 "apps/nrdb.py", "apps/tandem_match.py", "apps/allvall.py",
                 "models/xmers.py", "apps/xmers.py", "apps/compress_seq.py",
                 "apps/protein_mw.py", "apps/peptide_mult.py") + tuple(
-                    m.replace(".", "/") + ".py" for m in HOST_MODULES):
+                    m.replace(".", "/") + ".py"
+                    for m in HOST_MODULES + PARALLEL_MODULES):
         assert PKG / mod in files
     for f in files:
         text = f.read_text()

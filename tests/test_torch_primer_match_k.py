@@ -19,6 +19,7 @@ from sequence_alignment_tools_tpu_torch.models.primer_match import (
     PrimerMatchModel,
 )
 from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
+from sequence_alignment_tools_tpu_torch.parallel.shard import make_mesh
 from tests.test_torch_gate import mutate
 
 TABLE = b"ACGT\n"
@@ -147,13 +148,25 @@ def test_bench_primers_select_halves(db):
 
 @pytest.mark.parametrize("k,node,engine", [(1, 6, "hash"), (1, 15, "gs")])
 def test_unported_engines_raise(db, k, node, engine):
-    """No engine is left to raise: ``hash`` and ``gs`` build and run; only
-    a device mesh (the sharded rungs) still does."""
+    """No engine is left to raise: ``hash`` and ``gs`` build and run,
+    and under a device mesh (the sharded rungs) emit the same hits."""
     ps = build_pattern_set(PATS, rev_comp=True)
     m = PrimerMatchModel(db, ps, k=k, indels=False, node=node, device="cpu")
     assert m.engine == engine
     assert list(m.engine_hits()) == list(JaxModel(
         db, ps, k=k, indels=False, node=node, mesh=None).engine_hits())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PrimerMatchModel(db, ps, k=k, node=node, mesh=object(),
-                         device="cpu")
+    meshed = PrimerMatchModel(db, ps, k=k, indels=False, node=node,
+                              mesh=make_mesh(["cpu"] * 3), device="cpu")
+    assert list(meshed.engine_hits()) == list(m.engine_hits())
+
+
+@pytest.mark.parametrize("k,node,engine", [(1, 6, "hash"), (1, 15, "gs")])
+def test_seed_table_engines_stream(db, k, node, engine):
+    """The serving stream of the seed-table engines repeats their
+    per-run hits (it used to take the exact engines' scan stream)."""
+    ps = build_pattern_set(PATS, rev_comp=True)
+    m = PrimerMatchModel(db, ps, k=k, indels=False, node=node, device="cpu")
+    assert m.engine == engine
+    want = list(JaxModel(db, ps, k=k, indels=False, node=node,
+                         mesh=None).engine_hits())
+    assert list(m.engine_hits_stream(2)) == [want] * 2
