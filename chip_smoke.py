@@ -56,8 +56,12 @@ the same paths over a device mesh) at full size and checks their output:
    7,400 bases, about 100 and 232 words, all but the first in device
    scratch), and allvall ``-r``'s chunk (2,048 query 20-mers and their
    reverse complements, P = 4,096, k = 1 with indels, over 2^20), both
-   also at cap 1 (the overflow); the older commit's Sellers kernel timed
-   beside the long-pattern shapes;
+   also at cap 1 (the overflow); past one launch and byte-sized k over
+   2^15 positions: allvall's chunk widened to 35,000 mers (P = 70,000,
+   two launches, k = 2; also against the native Sellers rows over
+   pattern groups, on text without EOS) and two 300-base patterns at k =
+   255 with and without indels (16 counter planes); the older commit's
+   Sellers kernel timed beside the long-pattern shapes;
 9. the k = 2 main path: ``PrimerMatchModel(k=2, indels=True)`` (the
    filter engine, Myers route) over the resident 2^28 database, engine
    hits equal to the host route's (the native Sellers rows), every exact,
@@ -147,9 +151,9 @@ the same paths over a device mesh) at full size and checks their output:
     cannon_csbh_graph, csbh_annotate, solid_assembly) and the RL stack
     (Indexer, IndexerAA, Xspace, XspaceLo, WordGraph) on small generated
     inputs; each exit status and one invariant a tool checked, each wall
-    logged, no process loading jax or the JAX package or initializing
-    CUDA; walk_graph ``-O``'s min-cost flow against brute force on small
-    graphs;
+    logged, no process loading jax, the JAX package or torch or
+    initializing CUDA; walk_graph ``-O``'s min-cost flow against brute
+    force on small graphs;
 19. the mesh (``parallel/``): over ``make_mesh([cuda:0] * 4)`` the exact
     scan at 2^28, the k = 1 serving stream (the gated route per shard),
     ``-k 2`` on the Sellers configuration (``sellers.cu`` per shard) and
@@ -161,7 +165,17 @@ the same paths over a device mesh) at full size and checks their output:
     GPU mesh at 2^24: ``sharded_scan_counts_2d`` and
     ``sharded_pallas_scan_hits_2d`` (also at cap 1) on both ranks equal
     the unsharded stream.  One card shows what sharding costs, not a
-    speed-up.
+    speed-up;
+20. the cold one-shot regime: bench.py's one-shot rows (its 16 M corpus
+    and 10 primers, ``primer_match -r -c`` at k = 0, 1, 2,
+    ``SAT_AUTO_ARTIFACTS=1``) through ``python -S sat_torch``, best of 2,
+    with no torch imported and no CUDA initialized, bytes equal to the
+    sited ``python -m`` run and to the host route in this process; the
+    same rows with ``SAT_HOST_SCAN=0`` import torch mid-run, initialize
+    CUDA and name their kernels (``scan_filter.cu``, ``seed_gate.cu``,
+    ``myers.cu``) with the same bytes; then the floors (``python -S -c
+    pass``, ``python -c pass``, ``sat_torch --help``, a site-less
+    ``import torch`` and ``torch.cuda.init()``).
 
 Every phase raises on a mismatch.  The line before the last is a JSON
 object with each kernel's launches on its main path, error, times and
@@ -197,6 +211,7 @@ MAIN_N = 1 << 28          # about one human chromosome, resident whole
 BLOCK_N = 1 << 24         # the serving block and the kernel check size
 ENTRY = 2_000_000         # bases per database entry, as bench.py's corpus
 KEDIT_N = 1 << 22         # the k-edit kernel check size
+BIG_N = 1 << 15           # the Sellers checks at P = 70,000 and k = 255
 SELLERS_N = 1 << 26       # the Sellers-route configuration's database
 XMERS_CLI_N = 1 << 18     # merstream through the CLI (phase 16)
 # xmers at full batch width (phase 17): 2^20 bases took 244 s on the
@@ -1468,17 +1483,18 @@ def check_allvall_plants(bits, plants, k):
             raise AssertionError("allvall -k 1 missed a 1-deletion mer")
 
 
-def allvall_chunk(query, db, m=20):
+def allvall_chunk(query, db, m=20, count=2048):
     """The pattern tables of allvall ``-r``'s first chunk over the query
-    bases ``query``: its first 2,048 distinct mers of ``m`` ACGT bases in
-    order of first appearance, then their reverse complements (P =
-    4,096), built against ``db`` as ``apps/allvall.py`` builds them."""
+    bases ``query``: its first ``count`` (2,048 in allvall) distinct mers
+    of ``m`` ACGT bases in order of first appearance, then their reverse
+    complements (P = 4,096), built against ``db`` as ``apps/allvall.py``
+    builds them."""
     from sequence_alignment_tools_tpu_torch.io.patterns import PatternSet
     from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
     from sequence_alignment_tools_tpu_torch.utils.iupac import reverse_comp
 
     mers = list(dict.fromkeys(query[i:i + m]
-                              for i in range(len(query) - m + 1)))[:2048]
+                              for i in range(len(query) - m + 1)))[:count]
     pats = mers + [reverse_comp(p) for p in mers]
     ps = PatternSet(patterns=[""] + pats, esb=[0] * (len(pats) + 1),
                     eeb=[0] * (len(pats) + 1), n_forward=len(pats))
@@ -1679,12 +1695,13 @@ HOST_HOOK = '''import atexit, sys
 
 def _report():
     torch = sys.modules.get("torch")
-    sys.stderr.write("host-tool-process jax=%s jax_package=%s "
+    sys.stderr.write("host-tool-process jax=%s jax_package=%s torch=%s "
                      "cuda_initialized=%s\\n" % (
         any(m == "jax" or m.startswith("jax.") for m in sys.modules),
         any(m == "sequence_alignment_tools_tpu"
             or m.startswith("sequence_alignment_tools_tpu.")
             for m in sys.modules),
+        torch is not None,
         bool(torch is not None and torch.cuda.is_initialized())))
 
 
@@ -2268,7 +2285,7 @@ def host_tools_phase(tmp, smi, entry_len=ENTRY):
             raise AssertionError(f"{label}: exit status {run['rc']}: "
                                  + "\n".join(tail[-20:]))
         if tail[-1:] != ["host-tool-process jax=False jax_package=False "
-                         "cuda_initialized=False"]:
+                         "torch=False cuda_initialized=False"]:
             raise AssertionError(f"{label}: {tail[-1:]}")
         what = ok(run) if ok else "checked with its second run"
         log(f"host tool {' '.join(os.path.basename(x) for x in argv)}: "
@@ -2279,10 +2296,175 @@ def host_tools_phase(tmp, smi, entry_len=ENTRY):
         raise AssertionError(f"host tools: {len(names)} names run")
     log(f"host tools on {smi}: 21 names in {len(jobs) - 1} processes and "
         f"--help in one (up to {HOST_WORKERS} at once), CPU only: none "
-        f"loaded jax or the JAX package, none initialized CUDA; inputs "
+        f"loaded jax, the JAX package or torch, none initialized CUDA; "
+        f"inputs "
         f"{s_inputs:.3f} s (corpus of {8 * entry_len} bases written and "
         f"normalized), runs {s_runs:.3f} s; cuts: chario to the first "
         f"{HOST_CHARIO_N} bases, genome_simulation to {HOST_GENOME_N} bases")
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the cold one-shot regime (the site-less ``sat_torch`` launcher)
+
+COLD_FLAGS = (["-r", "-c"], ["-r", "-c", "-k", "1"], ["-r", "-c", "-k", "2"])
+# the device route's kernels, as its SAT_ROUTE_VERBOSE lines name them
+COLD_KERNELS = {"": ("scan_filter.cu",),
+                "1": ("scan_filter.cu", "seed_gate.cu"),
+                "2": ("myers.cu",)}
+BOOT_HOST = "sat-boot: torch_imported=False cuda_initialized=False"
+BOOT_DEVICE = "sat-boot: torch_imported=True cuda_initialized=True"
+
+
+def cold_runs(jobs):
+    """[(stdout, stderr, wall seconds)] of fresh interpreters running the
+    port's CLI, all started together: each job ``(argv, env, sited)`` is
+    ``python -S sat_torch <argv>``, or with ``sited`` the sited ``python -m
+    sequence_alignment_tools_tpu_torch <argv>``; raises on a non-zero
+    exit."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for argv, env, sited in jobs:
+        cmd = ([sys.executable, "-m", "sequence_alignment_tools_tpu_torch"]
+               if sited else [sys.executable, "-S",
+                              os.path.join(repo, "sat_torch")]) + argv
+        procs.append((cmd, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+            cwd=repo)))
+    done = []
+    for cmd, t0, proc in procs:
+        out, err = proc.communicate(timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[1:])}: exit status "
+                                 f"{proc.returncode}: {err[-1500:]!r}")
+        done.append((out, err.decode(errors="replace"), wall))
+    return done
+
+
+def cold_run(argv, env, sited=False):
+    return cold_runs([(argv, env, sited)])[0]
+
+
+def boot_report(err):
+    lines = [ln for ln in err.splitlines() if ln.startswith("sat-boot:")]
+    return lines[-1] if lines else None
+
+
+def floor_s(args, reps=2):
+    """Best wall seconds of ``python <args>``."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable] + args, check=True,
+                       capture_output=True, timeout=120)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+# a site-less interpreter given the launcher's site directories (argv[1]),
+# which then imports torch and starts CUDA, timing both on its own clock
+TORCH_FLOOR = """import sys, time
+boot = {"__name__": "sat_torch_boot"}
+exec(open(sys.argv[1]).read(), boot)
+boot["_add_site_dirs"]()
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.cuda.init()
+print(t1 - t0, time.perf_counter() - t1)
+"""
+
+
+def cold_phase(tmp, smi):
+    """Phase 20: bench.py's one-shot rows through the site-less launcher
+    on the card's machine.  bench.py's 16 M corpus and 10 primers,
+    ``primer_match -r -c`` at k = 0, 1 and 2 under ``SAT_AUTO_ARTIFACTS=1``
+    with ``SAT_MESH`` and ``SAT_DEVICE`` unset: a first run probes the GPU
+    count (torch imported, no CUDA context), caches it and writes the
+    artifacts; then the three with ``SAT_HOST_SCAN=0``, together, must
+    import torch mid-run, initialize CUDA and run the CUDA kernels; then
+    each row is the best of two ``python -S sat_torch`` runs, which must
+    import no torch and initialize no CUDA, and every run prints the bytes
+    of the sited ``python -m`` run and of the host route in this process.
+    Then the floors: the interpreter with and without ``site``, the
+    launcher's ``--help``, and one site-less interpreter that imports
+    torch and starts CUDA.  Returns ({row: best wall seconds}, {floor:
+    seconds})."""
+    t_phase = time.perf_counter()
+    corpus = os.path.join(tmp, "corpus.fasta")
+    write_bench_corpus(corpus)
+    pfile = os.path.join(tmp, "pats.txt")
+    with open(pfile, "w") as f:
+        f.write("\n".join(PATS) + "\n")
+    cache = os.path.join(tmp, "cache")
+    os.makedirs(cache)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SAT_DEVICE", "SAT_HOST_SCAN", "SAT_MESH",
+                        "SAT_ROUTE_VERBOSE")}
+    env.update(SAT_AUTO_ARTIFACTS="1", SAT_BOOT_DEBUG="1", TMPDIR=cache)
+    s_inputs = time.perf_counter() - t_phase
+    base = ["primer_match", "-i", corpus, "-P", pfile]
+    # the first run of the machine: auto mesh probes and caches the count
+    _o, err, wall0 = cold_run(base + list(COLD_FLAGS[0]), env)
+    if boot_report(err) != ("sat-boot: torch_imported=True "
+                            "cuda_initialized=False"):
+        raise AssertionError(f"cold probe run: {boot_report(err)}")
+    log(f"cold one-shot: first run (GPU count probed and cached, "
+        f"artifacts written) {wall0:.3f} s")
+    dev_env = dict(env, SAT_HOST_SCAN="0", SAT_ROUTE_VERBOSE="1")
+    dev_runs = cold_runs([(base + flags, dev_env, False)
+                          for flags in COLD_FLAGS])
+    walls = {}
+    for flags, (dev_out, dev_err, s_dev) in zip(COLD_FLAGS, dev_runs):
+        argv = base + flags
+        k = flags[3] if len(flags) > 2 else ""
+        row = "oneshot_" + ({"": "exact", "1": "k1", "2": "k2"}[k])
+        missing = [cu for cu in COLD_KERNELS[k] if cu not in dev_err]
+        if boot_report(dev_err) != BOOT_DEVICE or missing:
+            raise AssertionError(f"{row} device route: "
+                                 f"{boot_report(dev_err)}, no route line "
+                                 f"names {missing}")
+        outs, best = [], float("inf")
+        for _ in range(2):
+            out, err, wall = cold_run(argv, env)
+            if boot_report(err) != BOOT_HOST:
+                raise AssertionError(f"{row}: {boot_report(err)}")
+            outs.append(out)
+            best = min(best, wall)
+        sited, _e, s_sited = cold_run(argv, env, sited=True)
+        with host_route("cpu"):
+            oracle = run_tool("primer_match", argv[1:])
+        if not (outs[0] == outs[1] == sited == oracle == dev_out) \
+                or outs[0].count(b"\n") < len(PATS):
+            raise AssertionError(f"{row}: launcher, sited, host route and "
+                                 "device route bytes differ")
+        walls[row] = best
+        log(f"cold one-shot {row} ({' '.join(flags)}) on {smi}: sat_torch "
+            f"best of 2 {best:.3f} s (torch not imported, CUDA not "
+            f"initialized); sited python -m {s_sited:.3f} s; device route "
+            f"(SAT_HOST_SCAN=0, the three rows at once; torch imported "
+            f"mid-run, {' + '.join(COLD_KERNELS[k])}) {s_dev:.3f} s; "
+            f"{len(outs[0])} bytes, all equal")
+    launcher = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "sat_torch")
+    floors = {"python -S -c pass": floor_s(["-S", "-c", "pass"]),
+              "python -c pass": floor_s(["-c", "pass"]),
+              "python -S sat_torch --help": floor_s(["-S", launcher,
+                                                     "--help"])}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-S", "-c", TORCH_FLOOR, launcher],
+                       check=True, capture_output=True, text=True,
+                       timeout=120)
+    floors["python -S, import torch, torch.cuda.init()"] = \
+        time.perf_counter() - t0
+    t_import, t_cuda = (float(x) for x in r.stdout.split())
+    floors["of which import torch"] = t_import
+    floors["of which torch.cuda.init()"] = t_cuda
+    log(f"cold one-shot floors on {smi} (best of 2, the torch process "
+        f"once): " + ", ".join(f"{k} {v:.3f} s" for k, v in floors.items()))
+    log(f"cold one-shot phase: inputs {s_inputs:.3f} s (16 M corpus "
+        f"written), {len(COLD_FLAGS)} rows")
+    return walls, floors
 
 
 # ---------------------------------------------------------------------------
@@ -3100,7 +3282,61 @@ def main():
     kcases.append((f"allvall -r chunk P={st_av.P} Lmax={st_av.Lmax} k=1",
                    "sellers_scan", kdev, 1 << 20, st_av, EOS, 1, True,
                    1 << 20))
+    # past one launch's patterns and past byte-sized k: allvall -r's chunk
+    # widened to 35,000 query mers and their reverse complements (P =
+    # 70,000: two launches of sellers.cu), k = 2 with indels; and k = 255
+    # over two 300-base patterns cut from the text with edits and their
+    # reverse complements, with and without indels (16 counter planes);
+    # each over the first 2^15 positions
+    br = np.random.default_rng(SEED + 23)
+    bq = bytearray(random_dna(br, 35_019))
+    for i, kinds in enumerate(((), ("sub",), ("del",), ())):
+        seg = ktext[7_000 + 6_000 * i : 7_060 + 6_000 * i]
+        seg = edit(br, seg, kinds) if kinds else seg
+        bq[1_000 + 8_000 * i : 1_000 + 8_000 * i + len(seg)] = seg.encode()
+    t_big = allvall_chunk(bq.decode(), kdb, count=35_000)
+    st_big = sellers_tables(t_big).to(dev)
+    st_255 = sellers_tables(build_tables(build_pattern_set(
+        [edit(br, ktext[9_000 + 11_000 * i : 9_300 + 11_000 * i],
+              ("sub", "del", "ins")[: i + 1]) for i in range(2)],
+        rev_comp=True), kdb, wc=False, textn=False)).to(dev)
+    # the P = 70,000 case reads the main database's first entry (no EOS):
+    # the native Sellers rows take Myers' column reset at an EOS, not the
+    # row DP's (ROADMAP.md queue 3, standing), so they are its reference
+    # only away from one; EOS-dense text is held against plain at k = 255
+    big_dev = torch.from_numpy(codes[:BIG_N].copy()).to(dev)
+    big_cases = [
+        (f"P={st_big.P} (two launches) k=2", "sellers_scan", big_dev, BIG_N,
+         st_big, EOS, 2, True, 1 << 20),
+        (f"P={st_255.P} Lmax={st_255.Lmax} k=255", "sellers_scan", kdev,
+         BIG_N, st_255, EOS, 255, True, 1 << 20),
+        (f"P={st_255.P} Lmax={st_255.Lmax} k=255 without indels",
+         "sellers_scan", kdev, BIG_N, st_255, EOS, 255, False, 1 << 20)]
+    kcases += big_cases
     kedit_err = check_kedit(kcases)
+    for name, _kind, cd, nn, st_, _eos, k, indels, cap in big_cases:
+        b_ms = cuda_ms(lambda: sellers_scan(cd, nn, st_, EOS, k, indels,
+                                            cap), reps=3)
+        _r, b_plain = timed(lambda: sellers_ref(cd, nn, st_, EOS, k, indels,
+                                                cap))
+        log(f"sellers_scan {name} at n=2^15 on {smi}: kernel {b_ms:.4f} ms, "
+            f"plain {b_plain:.4f} ms (CUDA events)")
+    before = sellers_scan.launches
+    big_row = sellers_scan(big_dev, BIG_N, st_big, EOS, 2, True, 1 << 20)
+    big_launches = sellers_scan.launches - before
+    t0 = time.perf_counter()
+    ends, pids, dists = split_host_pairs(t_big, 2, codes[:BIG_N])
+    s_native = time.perf_counter() - t0
+    native = set(zip((ends - 1).tolist(), pids.tolist(), dists.tolist()))
+    if big_launches != 2 or row_set(big_row, 1 << 20, 3)[1] != native \
+            or len(native) < 4:
+        raise AssertionError(f"sellers_scan at P={st_big.P}: {big_launches} "
+                             "launches, or triples other than the native "
+                             "Sellers rows'")
+    log(f"sellers_scan at P={st_big.P}, k=2: {big_launches} launches, "
+        f"{len(native)} triples == the native Sellers rows over pattern "
+        f"groups ({s_native:.3f} s on 8 threads); k=255 held against "
+        f"plain only (the native rows take k <= 8)")
     for k in (1, 2, 3):
         my22 = cuda_ms(lambda: myers_pairs(kdev, KEDIT_N, mt_b, EOS, k,
                                            1 << 20), reps=10)
@@ -3939,6 +4175,12 @@ def main():
     mesh_phase(smi, dev, db, ps, got, s_main, got1, s_k1 / 5, sdb, psl,
                gotl, blocks, want_blocks, s_stream)
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # 20. the cold one-shot regime: the site-less launcher
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cold_phase(tmp, smi)
+        log(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "sequence_alignment_tools_tpu_torch/ops/cuda/csrc/"

@@ -14,10 +14,11 @@ Every device kernel is hand-written CUDA C++ for ``sm_90a`` under
 repository root; each has a plain PyTorch version beside it, which the
 wrapper runs for tensors on the CPU.
 
-Importing this package initialises no CUDA context and installs no
-import hook.
+Importing this package imports no torch, initialises no CUDA context
+and installs no import hook: the scanners and models import torch when a
+device route first needs it (``device.LazyDevice``), so a run whose
+routes are all host routes never loads it (the site-less ``sat_torch``
+launcher at the repository root is the cold one-shot entry point).
 """
-
-import torch  # noqa: F401
 
 __version__ = "0.1.0"

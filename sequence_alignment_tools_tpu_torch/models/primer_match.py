@@ -43,7 +43,7 @@ from typing import Iterator
 
 import numpy as np
 
-from ..device import resolve_device
+from ..device import LazyDevice
 from ..engine.extend import BatchSeedExtender, Extender
 from ..engine.verify import (
     Alignment,
@@ -54,7 +54,6 @@ from ..engine.verify import (
 from ..io.database import SeqDB
 from ..io.patterns import PatternSet
 from ..ops.conv_scan import ConvScanner
-from ..ops.gate import ExtendGate, GateTables
 from ..ops.sellers import SellersScanner
 from ..ops.tables import PatternTables, build_tables
 
@@ -321,9 +320,11 @@ class PrimerMatchModel:
         self.seedlen = seedlen
         self.node = node
         self.engine = select_engine(db, ps, k, wc, seedlen, node)
-        # the unsharded rungs run on the mesh's first device
-        self.device = (mesh.devices[0] if mesh is not None and device is None
-                       else resolve_device(device))
+        # the unsharded rungs run on the mesh's first device; resolved
+        # (torch imported) when a device route first reads it
+        self._device_arg = (mesh.devices[0]
+                            if mesh is not None and device is None
+                            else device)
         # verbose-mode progress reporter, attached to every scanner
         self.progress = None
         eos = chr(db.eos_char)
@@ -366,6 +367,8 @@ class PrimerMatchModel:
 
     # None = per-size auto; False pins engine scanners to the device route
     use_host = None
+    # the torch.device of the device routes, resolved on their first read
+    device = LazyDevice()
 
     def close(self) -> None:
         """Stop the filter engine's tail processes, if any were started."""
@@ -412,7 +415,7 @@ class PrimerMatchModel:
         if self._exact_ctx_c is None:
             tables = build_tables(self.ps, self.db, self.wc, self.textn)
             scanner = self._attach(ConvScanner(
-                tables, k=0, device=self.device))
+                tables, k=0, device=self._device_arg))
             self._exact_ctx_c = (tables, scanner)
         return self._exact_ctx_c
 
@@ -591,7 +594,8 @@ class PrimerMatchModel:
         half_ps = PatternSet(patterns=halves, esb=[0] * len(halves),
                              eeb=[0] * len(halves), n_forward=len(halves) - 1)
         tables = build_tables(half_ps, self.db, wc=self.wc, textn=self.textn)
-        scanner = self._attach(ConvScanner(tables, k=0, device=self.device))
+        scanner = self._attach(ConvScanner(tables, k=0,
+                                           device=self._device_arg))
         # per-seed extension geometry (sid == hid)
         S = len(halves)
         dirs = np.zeros(S, np.int32)
@@ -648,17 +652,19 @@ class PrimerMatchModel:
             anchors, sids0 = scanner.scan_gated(codes, gate, self.indels,
                                                 self.k)
             return anchors, self._hid_lut(scanner, hid_of)[sids0]
-        if scanner.census_on_device():
-            gates = ({"ext_gate": ExtendGate(self._engine_gate(
-                scanner, dirs, ext_pats, geomB, hid_of), self.indels)}
-                if scanner.gate_alphabet_ok() and self._gate_faithful()
-                else {})
-        else:
-            gates = {"gate": self._census_gate(scanner, dirs, ext_pats,
-                                               hid_of)}
-        arrays = scanner.scan_seed_arrays(codes, sort=False, **gates)
-        if arrays is not None:
-            ends, pids0 = arrays
+        if scanner.census_serves(codes):
+            if scanner.census_on_device():
+                from ..ops.gate import ExtendGate
+
+                gates = ({"ext_gate": ExtendGate(self._engine_gate(
+                    scanner, dirs, ext_pats, geomB, hid_of), self.indels)}
+                    if scanner.gate_alphabet_ok() and self._gate_faithful()
+                    else {})
+            else:
+                gates = {"gate": self._census_gate(scanner, dirs, ext_pats,
+                                                   hid_of)}
+            ends, pids0 = scanner.scan_seed_arrays(codes, sort=False,
+                                                   **gates)
             return ends, self._hid_lut(scanner, hid_of)[pids0]
         ends_l = []
         hids_l = []
@@ -739,6 +745,8 @@ class PrimerMatchModel:
         if self._gate_cache is not None \
                 and self._gate_cache[0] is scanner:
             return self._gate_cache[1]
+        from ..ops.gate import GateTables
+
         k = self.k
         S = len(ext_pats)
         gate = GateTables.from_seed_meta(
@@ -792,7 +800,8 @@ class PrimerMatchModel:
         seed_ps = PatternSet(patterns=seeds, esb=[0] * len(seeds),
                              eeb=[0] * len(seeds), n_forward=len(seeds) - 1)
         tables = build_tables(seed_ps, self.db, wc=self.wc, textn=self.textn)
-        scanner = self._attach(ConvScanner(tables, k=0, device=self.device))
+        scanner = self._attach(ConvScanner(tables, k=0,
+                                           device=self._device_arg))
         S = len(seeds)
         dirs = np.zeros(S, np.int32)
         la = np.zeros(S, np.int32)
@@ -869,7 +878,8 @@ class PrimerMatchModel:
         seed_ps = PatternSet(patterns=seeds, esb=[0] * len(seeds),
                              eeb=[0] * len(seeds), n_forward=len(seeds) - 1)
         tables = build_tables(seed_ps, self.db, wc=False, textn=False)
-        scanner = self._attach(ConvScanner(tables, k=0, device=self.device))
+        scanner = self._attach(ConvScanner(tables, k=0,
+                                           device=self._device_arg))
         # (pos asc, seed index desc): scan order with push_front cell lists
         cands = sorted(
             ((end, -(s0 + 1)) for end, s0, _ in scanner.scan(self.db.codes))
@@ -976,7 +986,8 @@ class PrimerMatchModel:
         # gap columns are never-accepting weight columns, so the template
         # scan takes the scanner's ordinary rungs (the host machine for a
         # one-shot run, the fused or pattern-blocked route otherwise)
-        scanner = self._attach(ConvScanner(tables, k=0, device=self.device))
+        scanner = self._attach(ConvScanner(tables, k=0,
+                                           device=self._device_arg))
         cands = []
         for end, row, _ in scanner.scan(db.codes):
             win_start = end - L  # ConvScanner end = start + lengths
@@ -1063,10 +1074,10 @@ class PrimerMatchModel:
         tables = build_tables(ps, self.db, self.wc, self.textn)
         if self.indels:
             scanner = self._attach(SellersScanner(
-                tables, k=k, indels=True, device=self.device))
+                tables, k=k, indels=True, device=self._device_arg))
         else:
             scanner = self._attach(ConvScanner(
-                tables, k=k, poison_eos=True, device=self.device))
+                tables, k=k, poison_eos=True, device=self._device_arg))
         verifier = BatchVerifier(
             self._cluster_aligner, self.db,
             [ps.pattern(pid) for pid in range(1, ps.n_total + 1)],

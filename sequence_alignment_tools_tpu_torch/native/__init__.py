@@ -11,7 +11,9 @@ The libraries go to ``build/sat_torch_native/`` at the repository root
 cache, so the two packages neither share nor race over one ``.so``.  A
 library's file name carries a hash of its source, and concurrent
 builders (pytest workers, the filter engine's tail processes) serialise
-on a file lock, so a stale or half-written library is never loaded.
+on a file lock, so a stale or half-written library is never loaded; the
+threads of one process serialise their first load on a lock, so none
+sees another's unfinished load as "unavailable".
 
 - ``verify_dp.cpp``: the per-candidate banded edit-distance DP of the
   filter -> verify pipeline, the seed extension and the pair sort.
@@ -28,9 +30,11 @@ import fcntl
 import hashlib
 import os
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _LIBS: dict[str, object] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _build_dir() -> str:
@@ -51,7 +55,15 @@ def _load(name: str, src_name: str):
         return None
     if name in _LIBS:
         return _LIBS[name]
-    _LIBS[name] = None
+    with _LOAD_LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = _build_and_load(name, src_name)
+    return _LIBS[name]
+
+
+def _build_and_load(name: str, src_name: str):
+    """The loaded library, built first when its file is missing; None on
+    any failure."""
     src = os.path.join(_HERE, src_name)
     try:
         with open(src, "rb") as f:
@@ -71,10 +83,9 @@ def _load(name: str, src_name: str):
                     if r.returncode != 0:
                         return None
                     os.replace(tmp, out)
-        _LIBS[name] = ctypes.CDLL(out)
+        return ctypes.CDLL(out)
     except Exception:
         return None
-    return _LIBS[name]
 
 
 def load_verify_lib():

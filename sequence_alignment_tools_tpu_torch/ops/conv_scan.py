@@ -55,6 +55,12 @@ then ``gate_slots.cu`` over the slot list, which stays on the device).
 Both name every seed at every start, so the JAX route's escape list
 (multi-seed starts, EOS windows, slot overflows rescanned on the host) and
 its chain and fold machinery have no counterpart.
+
+Importing this module imports no torch: the host rungs (the native
+shift-and machine, the native census) run without it, and the device
+rungs import torch, the kernels' wrappers and the device tables when
+they first run.  ``device`` is resolved then too (:class:`..device.
+LazyDevice`); the host rungs never read it.
 """
 
 from __future__ import annotations
@@ -62,16 +68,17 @@ from __future__ import annotations
 import os
 import weakref
 from collections import deque
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
-from ..device import resolve_device
-from .cuda.scan_kernel import long_form, scan_hits
-from .cuda.seed_gate import gated_hits
-from .cuda.slots import MerTables, scan_slots, slot_gated_hits
-from .gate import GATE_ALPHA
-from .tables import device_tables
+from ..device import LazyDevice, device_type
+from .tables import GATE_ALPHA
+
+if TYPE_CHECKING:
+    import torch
+
+    from .cuda.slots import MerTables
 
 
 _DEV_CACHE: dict = {}
@@ -91,6 +98,8 @@ def device_form(codes, device: torch.device) -> torch.Tensor:
     a streaming caller should not hold on to the block views it has
     scanned, or every block's copy stays resident.  ``cuda`` and
     ``cuda:<current device>`` name one entry."""
+    import torch
+
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -113,6 +122,14 @@ def device_form(codes, device: torch.device) -> torch.Tensor:
 
 
 device_form.uploads = 0
+
+
+def scan_hits(*args):
+    """:func:`.cuda.scan_kernel.scan_hits`, the fused route's kernel and
+    glue, imported at the first call (this module imports no torch)."""
+    from .cuda.scan_kernel import scan_hits as fused
+
+    return fused(*args)
 
 
 class ConvScanner:
@@ -143,6 +160,8 @@ class ConvScanner:
     # tri-state: None = auto (small scans), False = never, True = whenever
     # the native machine can represent the patterns
     use_host = None
+    # the torch.device of the device rungs, resolved on their first read
+    device = LazyDevice()
 
     def __init__(self, tables, k: int = 0, poison_eos: bool | None = None,
                  device=None):
@@ -151,7 +170,7 @@ class ConvScanner:
         if poison_eos is None:
             poison_eos = k > 0
         self.poison_eos = poison_eos
-        self.device = resolve_device(device)
+        self._device_arg = device
         self._dt = None
         self._host_scanner = None
         self._radix_ok_c = None
@@ -168,6 +187,8 @@ class ConvScanner:
 
     def _tables_dev(self):
         if self._dt is None:
+            from .tables import device_tables
+
             self._dt = device_tables(self.tables, self.k, self.poison_eos,
                                      self.device)
         return self._dt
@@ -217,6 +238,8 @@ class ConvScanner:
         if self._dt_more is None:
             self._dt_more = {}
         if device not in self._dt_more:
+            from .tables import device_tables
+
             self._dt_more[device] = device_tables(
                 self.tables, self.k, self.poison_eos, device)
         return self._dt_more[device]
@@ -258,6 +281,8 @@ class ConvScanner:
         if mb_count > cap_mb or hit_count > hit_cap:
             yield from self._redispatch(codes_dev, n, mb_count, hit_count)
             return
+        from .cuda.scan_kernel import long_form
+
         mb_idx = packed[2 : 2 + cap_mb]
         hits = packed[2 + cap_mb : 2 + cap_mb + hit_cap]
         if not long_form(cap_mb, self.tables.P, self._MB):
@@ -353,6 +378,8 @@ class ConvScanner:
     def _to_host(packed: torch.Tensor):
         if packed.device.type != "cuda":
             return packed, None
+        import torch
+
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         ev = torch.cuda.Event()
@@ -407,7 +434,8 @@ class ConvScanner:
         """Whether a census runs through :func:`.cuda.slots.scan_slots` on
         the scanner's device: always on a CUDA device, and on the CPU only
         with the host machines off (its plain version, for the tests)."""
-        return (self.device.type == "cuda" or self.use_host is False
+        return (device_type(self._device_arg) == "cuda"
+                or self.use_host is False
                 or os.environ.get("SAT_HOST_SCAN", "1") == "0")
 
     def _slots_ok(self) -> bool:
@@ -448,8 +476,12 @@ class ConvScanner:
                         caps, slots: bool):
         gt_dev = self._gate_on(gt, codes_dev.device)
         if slots:
+            from .cuda.slots import slot_gated_hits
+
             return slot_gated_hits(codes_dev, n, self._mer_dev(), gt_dev,
                                    indels, *caps)
+        from .cuda.seed_gate import gated_hits
+
         return gated_hits(codes_dev, n, self._tables_on(codes_dev.device),
                           gt_dev, self._eos, indels, *caps)
 
@@ -487,7 +519,10 @@ class ConvScanner:
                 "gated scan of %d seeds (> %d) needs literal seeds and a "
                 "device census: ask gated_available first"
                 % (self.tables.P, self._PBLOCK))
-        on = "CUDA" if self.device.type == "cuda" else "plain PyTorch, CPU"
+        on = "plain PyTorch, CPU"
+        if self.device.type == "cuda":
+            on = ("CUDA: seed_slots.cu + gate_slots.cu" if slots
+                  else "CUDA: scan_filter.cu + seed_gate.cu")
         if self._sharded_capable():
             self._route("gated seed scan + extension gate (%s) sharded over "
                         "%d devices" % (on, self.mesh.size))
@@ -696,6 +731,8 @@ class ConvScanner:
     def _mer_dev(self) -> MerTables:
         """The census tables on the scanner's device, built once."""
         if self._mer_dev_c is None:
+            from .cuda.slots import MerTables
+
             self._mer_dev_c = MerTables(
                 self._mer_tables(), self._by_len(), self.tables.lengths,
                 self.tables.alpha).to(self.device)
@@ -840,6 +877,8 @@ class ConvScanner:
         :func:`.cuda.slots.scan_slots` on the scanner's device.  The true
         count comes back first; an overflow is one re-launch with a cap
         past it.  Only the live part of the row is fetched."""
+        from .cuda.slots import scan_slots
+
         dev = device_form(codes, self.device)
         mt = self._mer_dev()
         while True:
@@ -867,7 +906,7 @@ class ConvScanner:
         t = self.tables
         if self.census_on_device():
             self._route("census kernel (%d patterns; %s%s)" % (
-                t.P, "CUDA" if self.device.type == "cuda"
+                t.P, "CUDA: seed_slots.cu" if self.device.type == "cuda"
                 else "plain PyTorch, CPU", self._unsharded()))
             return self._census_device(codes, n, sort)
         native = self._mer_native(codes, n, sort=sort, gate=gate)
@@ -917,6 +956,14 @@ class ConvScanner:
         e_l = ends.tolist()
         yield from zip(e_l, pids.tolist(), [0] * len(e_l))
 
+    def census_serves(self, codes) -> bool:
+        """Whether the census rung of :meth:`scan` serves this scan (what
+        :meth:`scan_seed_arrays` answers for): a resident array that the
+        host rung does not take, and the census's routing test."""
+        n = len(codes)
+        return (not self._stream_whole(codes) and not self._host_eligible(n)
+                and self._census_eligible(n))
+
     def scan_seed_arrays(self, codes: np.ndarray, sort: bool = True,
                          gate=None, ext_gate=None):
         """(ends, pids0) int64 arrays when the census serves this scan
@@ -930,11 +977,9 @@ class ConvScanner:
         ``ext_gate`` (an :class:`..gate.ExtendGate`), run by
         ``gate_slots`` over the slot list on the device before anything is
         fetched."""
+        if not self.census_serves(codes):
+            return None
         n = len(codes)
-        if self._stream_whole(codes) or self._host_eligible(n):
-            return None
-        if not self._census_eligible(n):
-            return None
         if (ext_gate is not None and self.census_on_device()
                 and self.gate_alphabet_ok()):
             _i, ends, pids = next(self._gated_stream(
@@ -1057,7 +1102,8 @@ class ConvScanner:
             from ..parallel.shard import sharded_pallas_scan_hits
 
             self._route("fused %s scan pipeline sharded over %d devices"
-                        % ("CUDA" if self.device.type == "cuda"
+                        % ("CUDA (scan_filter.cu)"
+                           if self.device.type == "cuda"
                            else "plain PyTorch", self.mesh.size))
             yield from sharded_pallas_scan_hits(self, codes, self.mesh)
             if self.progress:
@@ -1091,7 +1137,7 @@ class ConvScanner:
             if self.progress:
                 self.progress(1.0)
             return
-        self._route("fused CUDA scan pipeline"
+        self._route("fused CUDA scan pipeline (scan_filter.cu)"
                     if self.device.type == "cuda"
                     else "fused scan pipeline (plain PyTorch on the CPU)")
         yield from self._scan_fused(codes)

@@ -153,8 +153,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.sat_sellers_scan.restype = i32
         lib.sat_sellers_scan.argtypes = [
             vp, i64,            # codes, n
-            vp, vp,             # peq, lens
-            i32, i32, i32,      # P, Lmax, alpha
+            vp, vp,             # peq, lens (from the launch's first)
+            i32, i32,           # P of the launch, its first pattern id
+            i32, i32,           # Lmax, alpha
             i32, i32, i32,      # eos, k, indels
             i64, i64,           # segc, halo
             vp, i64,            # out, cap

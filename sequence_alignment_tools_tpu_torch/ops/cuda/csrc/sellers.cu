@@ -49,11 +49,17 @@
 //     on the first character after it only row 1 may match (the accept
 //     word masked to its lowest bit in word 0, zero above), and nothing
 //     reported at the EOS itself;
-//   - without indels, bit-sliced saturating counters (1, 2, 4 or 8
-//     planes a word, one instance each, from the bit length of k + 1):
-//     shift by one row, add the mismatch word, saturate at k + 1; the same
-//     active-word cutoff;
-//   - one thread per (text segment, pattern), blockIdx.y the pattern; the
+//   - without indels, bit-sliced saturating counters (1, 2, 4, 8 or 16
+//     planes a word, one instance each, from the bit length of k + 1, so
+//     k up to 65,534): shift by one row, add the mismatch word, saturate
+//     at k + 1; the same active-word cutoff.  With indels the scores are
+//     ints, so k is not bounded by the cells either;
+//   - one thread per (text segment, pattern), blockIdx.y the pattern of
+//     the launch; a set of more than 65,535 patterns (the grid's y
+//     limit) takes one launch per block of patterns, each given its
+//     block's accept words and lengths and the block's first pattern id
+//     (pid0), all launches on one stream writing one output row and
+//     reusing one scratch buffer sized for a block; the
 //     block's 128 segments are staged 32 characters at a time into shared
 //     memory by coalesced 4-byte loads (rows of 9 words: a warp reads 32
 //     rows without bank conflicts), so every segment runs the same
@@ -146,14 +152,15 @@ __device__ __forceinline__ int count_at(const uint32_t* pl, int top) {
   return v;
 }
 
-// kQ = 0: with indels (Myers' words); kQ = 1, 2, 4 or 8: without, kQ
-// counter planes a word.
+// kQ = 0: with indels (Myers' words); kQ = 1, 2, 4, 8 or 16: without,
+// kQ counter planes a word.  peq and lens start at the launch's first
+// pattern, whose id is pid0.
 template <int kQ, bool kPeqShared>
 __global__ void __launch_bounds__(kThreads)
 sellers_bp_kernel(const uint8_t* __restrict__ codes, int64_t n, int aligned,
                   const uint32_t* __restrict__ peq,
                   const int32_t* __restrict__ lens, int W, int alpha,
-                  int eos, int k, int segc, int halo,
+                  int eos, int k, int segc, int halo, int pid0,
                   int32_t* __restrict__ out, int64_t cap,
                   uint32_t* __restrict__ far) {
   // shared layout: [staged text, kThreads rows of kRowWords words]
@@ -218,7 +225,7 @@ sellers_bp_kernel(const uint8_t* __restrict__ codes, int64_t n, int aligned,
       const int slot = atomicAdd(out, 1);
       if (slot < cap) {
         out[1 + slot] = static_cast<int32_t>(own0 + rel);
-        out[1 + cap + slot] = p;
+        out[1 + cap + slot] = pid0 + p;
         out[1 + 2 * cap + slot] = d;
       }
     }
@@ -369,8 +376,11 @@ sellers_bp_kernel(const uint8_t* __restrict__ codes, int64_t n, int aligned,
 // a power of two (a plane past the bit length stays zero).
 int planes(int k) {
   const int q = 32 - __builtin_clz(static_cast<unsigned>(k + 1));
-  return q <= 1 ? 1 : q <= 2 ? 2 : q <= 4 ? 4 : 8;
+  return q <= 1 ? 1 : q <= 2 ? 2 : q <= 4 ? 4 : q <= 8 ? 8 : 16;
 }
+
+constexpr int kMaxK = 65534;    // 16 planes hold k + 1
+constexpr int kMaxRows = 65535;  // patterns a launch: gridDim.y
 
 // Scratch words per thread: the vertical deltas (indels) or the counter
 // planes of every word past the first.
@@ -389,7 +399,7 @@ size_t smem_bytes(int W, int alpha) {
 }
 
 using Kernel = void (*)(const uint8_t*, int64_t, int, const uint32_t*,
-                       const int32_t*, int, int, int, int, int, int,
+                       const int32_t*, int, int, int, int, int, int, int,
                        int32_t*, int64_t, uint32_t*);
 
 // The instance of a scan: kQ 0 with indels, else planes(k).
@@ -400,7 +410,8 @@ Kernel pick(int indels, int k) {
     case 1: return sellers_bp_kernel<1, kPeqShared>;
     case 2: return sellers_bp_kernel<2, kPeqShared>;
     case 4: return sellers_bp_kernel<4, kPeqShared>;
-    default: return sellers_bp_kernel<8, kPeqShared>;
+    case 8: return sellers_bp_kernel<8, kPeqShared>;
+    default: return sellers_bp_kernel<16, kPeqShared>;
   }
 }
 
@@ -428,17 +439,18 @@ int64_t round_up(int64_t x, int64_t m) { return (x + m - 1) / m * m; }
 
 // The launch plan of a scan into plan[0 .. 3): the segment length (a
 // multiple of 32), the warm-up halo (Lmax + k rounded up to 32) and the
-// bytes of device scratch.  segc_req > 0 asks for that segment length
-// (rounded up to 32); 0 sizes the segments so that P rows of
-// ceil(nseg / 128) blocks fill whole waves of the current device's
-// resident blocks, each segment at least four halos and 256 characters
-// long, and the scratch at most scratch_max bytes where segments can
-// grow.  Returns a cudaError_t (0 on success).
+// bytes of device scratch.  P is the patterns of the largest launch (at
+// most 65,535).  segc_req > 0 asks for that segment length (rounded up
+// to 32); 0 sizes the segments so that P rows of ceil(nseg / 128) blocks
+// fill whole waves of the current device's resident blocks, each segment
+// at least four halos and 256 characters long, and the scratch at most
+// scratch_max bytes where segments can grow.  Returns a cudaError_t (0
+// on success).
 extern "C" int sat_sellers_plan(int64_t n, int P, int Lmax, int alpha, int k,
                                 int indels, int segc_req,
                                 int64_t scratch_max, int64_t* plan) {
-  if (n < 1 || P < 1 || Lmax < 1 || alpha < 1 || alpha > 256 || k < 0 ||
-      k > 254) {
+  if (n < 1 || P < 1 || P > kMaxRows || Lmax < 1 || alpha < 1 ||
+      alpha > 256 || k < 0 || k > kMaxK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int W = (Lmax + 31) / 32;
@@ -482,24 +494,27 @@ extern "C" int sat_sellers_plan(int64_t n, int P, int Lmax, int alpha, int k,
   return 0;
 }
 
-// Candidate triples of the Sellers scan into out[0 .. 1 + 3 cap): out[0]
-// the true count (the caller zeroes it first), then the 0-based end
-// positions, the pattern ids and the distances.  codes [>= n] uint8, peq
-// [P, ceil(Lmax / 32), alpha + 1] uint32 (bit i of word b at code c: row
-// 32 b + i + 1 of pattern p accepts c; column alpha zero) and lens [P]
-// int32 (each in [1, Lmax]) on the device; segc and halo from
-// sat_sellers_plan; scratch holds its plan[2] bytes (null when 0).
-// Returns the cudaError_t of the launch (0 on success).
+// Candidate triples of the Sellers scan of P patterns (one launch, at
+// most 65,535) into out[0 .. 1 + 3 cap): out[0] the true count (the
+// caller zeroes it first; launches into one row add up), then the
+// 0-based end positions, the pattern ids (pid0 + the launch's pattern)
+// and the distances.  codes [>= n] uint8, peq [P, ceil(Lmax / 32),
+// alpha + 1] uint32 (bit i of word b at code c: row 32 b + i + 1 of
+// pattern p accepts c; column alpha zero) and lens [P] int32 (each in
+// [1, Lmax]) on the device, both from the launch's first pattern; segc
+// and halo from sat_sellers_plan; scratch holds its plan[2] bytes (null
+// when 0).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int sat_sellers_scan(const void* codes, int64_t n, const void* peq,
-                                const void* lens, int P, int Lmax, int alpha,
-                                int eos, int k, int indels, int64_t segc,
-                                int64_t halo, void* out, int64_t cap,
-                                void* scratch, int64_t scratch_bytes,
-                                void* stream) {
+                                const void* lens, int P, int pid0, int Lmax,
+                                int alpha, int eos, int k, int indels,
+                                int64_t segc, int64_t halo, void* out,
+                                int64_t cap, void* scratch,
+                                int64_t scratch_bytes, void* stream) {
   if (n < 1) return 0;
   const int W = (Lmax + 31) / 32;
-  if (P < 1 || P > 65535 || Lmax < 1 || alpha < 1 || alpha > 256 ||
-      eos < 0 || eos > 255 || k < 0 || k > 254 || segc < kTile ||
+  if (P < 1 || P > kMaxRows || pid0 < 0 || Lmax < 1 || alpha < 1 ||
+      alpha > 256 || eos < 0 || eos > 255 || k < 0 || k > kMaxK ||
+      segc < kTile ||
       segc % kTile != 0 || halo < Lmax + k || halo % kTile != 0 ||
       cap < 1 || segc + halo >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -520,7 +535,7 @@ extern "C" int sat_sellers_scan(const void* codes, int64_t n, const void* peq,
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), n, aligned,
       static_cast<const uint32_t*>(peq), static_cast<const int32_t*>(lens), W,
-      alpha, eos, k, static_cast<int>(segc), static_cast<int>(halo),
+      alpha, eos, k, static_cast<int>(segc), static_cast<int>(halo), pid0,
       static_cast<int32_t*>(out), cap, static_cast<uint32_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,9 @@ without) on a CUDA tensor and runs :func:`sellers_ref`, the row DP of
 ``_sellers_block`` in plain PyTorch, on a CPU tensor.  It serves the
 pattern sets the Myers kernel does not take: a pattern longer than 31,
 more words than the Myers kernel keeps in registers, a pattern of length
-<= k, or no indels.
+<= k, or no indels.  It takes any number of patterns (one launch per
+block of :data:`PATTERN_BLOCK`, on the CPU one plain call per block) and
+k up to :data:`MAX_K`.
 """
 
 from __future__ import annotations
@@ -31,8 +33,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-# the kernel's counters without indels hold k + 1 in at most 8 bit planes
-MAX_K = 254
+# the kernel's counters without indels hold k + 1 in at most 16 bit planes
+MAX_K = 65534
+# the most patterns one launch takes (a grid row per pattern, gridDim.y);
+# larger sets take one launch per block, the plain version one call
+PATTERN_BLOCK = 65535
 # the most device scratch one launch takes for the words of long patterns;
 # past it the segments grow (fewer threads)
 _SCRATCH_MAX = 1 << 30
@@ -76,6 +81,17 @@ class SellersTables:
     def to(self, device) -> SellersTables:
         return SellersTables(self.acc.to(device), self.lens.to(device),
                              self.alpha, self.peq.to(device))
+
+    def blocks(self):
+        """[(first pattern id, tables)] of consecutive blocks of at most
+        :data:`PATTERN_BLOCK` patterns (views of these tables)."""
+        if self.P <= PATTERN_BLOCK:
+            return [(0, self)]
+        return [(lo, SellersTables(self.acc[lo : lo + PATTERN_BLOCK],
+                                   self.lens[lo : lo + PATTERN_BLOCK],
+                                   self.alpha,
+                                   self.peq[lo : lo + PATTERN_BLOCK]))
+                for lo in range(0, self.P, PATTERN_BLOCK)]
 
 
 def peq_words(acc: np.ndarray, lens: np.ndarray, alpha: int) -> np.ndarray:
@@ -189,12 +205,35 @@ def sellers_ref(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
 
 
 def kernel_takes(st: SellersTables, k: int) -> bool:
-    """Whether ``csrc/sellers.cu`` takes this pattern set and k: k <= 254,
-    a grid row per pattern (P <= 65,535), patterns of at least one
-    position and alphabets of at most 256 codes.  Any Lmax: the words
-    past the first live in device scratch."""
-    return (0 <= k <= MAX_K and 1 <= st.P <= 65535 and st.alpha <= 256
+    """Whether ``csrc/sellers.cu`` takes this pattern set and k: k <=
+    ``MAX_K``, at least one pattern, each of at least one position, and
+    alphabets of at most 256 codes.  Any number of patterns (a launch per
+    block of ``PATTERN_BLOCK``) and any Lmax (the words past the first
+    live in device scratch)."""
+    return (0 <= k <= MAX_K and st.P >= 1 and st.alpha <= 256
             and bool((st.lens >= 1).all()))
+
+
+def _merged(rows, cap: int) -> torch.Tensor:
+    """One ``[count, pos (cap), pid (cap), dist (cap)]`` row of the rows
+    of consecutive pattern blocks [(first pattern id, row)]: the counts
+    summed, the kept triples concatenated (pattern ids rebased) and the
+    first ``cap`` of them kept."""
+    if len(rows) == 1:
+        return rows[0][1]
+    parts = []
+    for lo, row in rows:
+        m = min(int(row[0]), cap)
+        parts.append((row[1 : 1 + m], row[1 + cap : 1 + cap + m] + lo,
+                      row[1 + 2 * cap : 1 + 2 * cap + m]))
+    pos, pid, dist = (torch.cat(x) for x in zip(*parts))
+    keep = min(pos.numel(), cap)
+    out = torch.zeros_like(rows[0][1])
+    out[0] = sum(int(row[0]) for _lo, row in rows)
+    out[1 : 1 + keep] = pos[:keep]
+    out[1 + cap : 1 + cap + keep] = pid[:keep]
+    out[1 + 2 * cap : 1 + 2 * cap + keep] = dist[:keep]
+    return out
 
 
 def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
@@ -208,13 +247,16 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
     device; ``segc`` the text positions per thread (rounded up to 32;
     None: the kernel sizes the segments to fill whole waves of the card).
     On a CUDA tensor this launches ``csrc/sellers.cu`` on the current
-    stream (with a device scratch buffer for the words past each
-    pattern's first, at most ``_SCRATCH_MAX`` bytes when the segments can
-    grow) and counts the launch in ``sellers_scan.launches``; on a CPU
-    tensor it is :func:`sellers_ref`.  Nothing here waits for the
-    device."""
+    stream, once per block of :data:`PATTERN_BLOCK` patterns, every
+    launch into one row and with one device scratch buffer for the words
+    past each pattern's first (sized for a block, at most
+    ``_SCRATCH_MAX`` bytes when the segments can grow), and counts each
+    launch in ``sellers_scan.launches``; on a CPU tensor it is
+    :func:`sellers_ref` per block, the rows merged.  Nothing here waits
+    for the device."""
     if codes.device.type == "cpu":
-        return sellers_ref(codes, n, st, eos, k, indels, cap)
+        return _merged([(lo, sellers_ref(codes, n, b, eos, k, indels, cap))
+                        for lo, b in st.blocks()], cap)
     if codes.device.type != "cuda":
         raise ValueError(f"sellers_scan: unsupported device {codes.device}")
     if codes.dtype != torch.uint8 or codes.dim() != 1 \
@@ -236,9 +278,10 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
 
     lib = build.library("sellers")
     plan = (ctypes.c_int64 * 3)()
+    blocks = st.blocks()
     with torch.cuda.device(codes.device):
-        rc = lib.sat_sellers_plan(n, st.P, st.Lmax, st.alpha, k, int(indels),
-                                  segc or 0, _SCRATCH_MAX, plan)
+        rc = lib.sat_sellers_plan(n, blocks[0][1].P, st.Lmax, st.alpha, k,
+                                  int(indels), segc or 0, _SCRATCH_MAX, plan)
         if rc != 0:
             raise RuntimeError(f"sellers_scan plan failed: cudaError_t {rc}")
         segc, halo, nscratch = plan
@@ -246,14 +289,16 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
                               device=codes.device)
         out = torch.zeros(1 + 3 * cap, dtype=torch.int32, device=codes.device)
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        rc = lib.sat_sellers_scan(
-            codes.data_ptr(), n, st.peq.data_ptr(), st.lens.data_ptr(),
-            st.P, st.Lmax, st.alpha, eos, k, int(indels), segc, halo,
-            out.data_ptr(), cap, scratch.data_ptr() if nscratch else None,
-            nscratch, stream)
-    if rc != 0:
-        raise RuntimeError(f"sellers_scan launch failed: cudaError_t {rc}")
-    sellers_scan.launches += 1
+        for lo, b in blocks:
+            rc = lib.sat_sellers_scan(
+                codes.data_ptr(), n, b.peq.data_ptr(), b.lens.data_ptr(),
+                b.P, lo, st.Lmax, st.alpha, eos, k, int(indels), segc, halo,
+                out.data_ptr(), cap, scratch.data_ptr() if nscratch else None,
+                nscratch, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"sellers_scan launch failed: cudaError_t {rc}")
+            sellers_scan.launches += 1
     return out
 
 

@@ -23,10 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-# the accept words hold one bit per code below this (int32, bit 30 the
-# out-of-range sentinel): wider alphabets take the ungated routes
-GATE_ALPHA = 30
+from .tables import GATE_ALPHA
 
 
 class GateTables:

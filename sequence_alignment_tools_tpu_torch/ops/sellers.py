@@ -30,20 +30,25 @@ tunnelled transport (``_pack_myers_group``, the fetch thread,
 ``_myers_epilogue_retry``) have no counterpart; an overflow is one
 re-launch with a cap past the true count.  On CPU tensors the kernels'
 plain PyTorch versions run.
+
+Importing this module imports no torch: the host route runs without it,
+and the device routes import torch and the kernels' wrappers when they
+first run (``device`` is resolved then, :class:`..device.LazyDevice`).
 """
 
 from __future__ import annotations
 
 import os
 from collections import deque
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
-from ..device import resolve_device
+from ..device import LazyDevice
 from .conv_scan import ConvScanner, device_form
-from .cuda.myers import MAX_FIELD, MAX_WORDS, myers_pairs, myers_tables
-from .cuda.sellers import kernel_takes, sellers_scan, sellers_tables
+
+if TYPE_CHECKING:
+    import torch
 
 
 class SellersScanner:
@@ -65,12 +70,14 @@ class SellersScanner:
     # tri-state like ConvScanner.use_host: None = auto (route small scans
     # to the native machine), False = pin the device route
     use_host = None
+    # the torch.device of the device routes, resolved on their first read
+    device = LazyDevice()
 
     def __init__(self, tables, k: int, indels: bool = True, device=None):
         self.tables = tables
         self.k = k
         self.indels = indels
-        self.device = resolve_device(device)
+        self._device_arg = device
         self._host_scanner = None
         self._routes_done = None
         self._my_c = None
@@ -119,11 +126,15 @@ class SellersScanner:
 
     def _myers_t(self):
         if self._my_c is None:
+            from .cuda.myers import myers_tables
+
             self._my_c = myers_tables(self.tables).to(self.device)
         return self._my_c
 
     def _sellers_t(self):
         if self._sel_c is None:
+            from .cuda.sellers import sellers_tables
+
             self._sel_c = sellers_tables(self.tables).to(self.device)
         return self._sel_c
 
@@ -147,6 +158,8 @@ class SellersScanner:
         scanner's other gates (backend, n, alphabet, P <= 30 for its
         32-bit hit mask) were TPU layout bounds: the CUDA kernel indexes
         its accept words by code and emits (position, pattern) pairs."""
+        from .cuda.myers import MAX_FIELD, MAX_WORDS
+
         t = self.tables
         if not self.indels or t.P == 0 or n < 1:
             return False
@@ -157,10 +170,13 @@ class SellersScanner:
 
     def kernel_available(self, n: int) -> bool:
         """Whether a device kernel takes this scan: the Myers kernel, or
-        else the Sellers row-DP kernel (byte cells, so k <= 254; at most
-        65,535 patterns; any pattern length)."""
+        else the Sellers kernel (any number of patterns, one launch per
+        block of ``cuda.sellers.PATTERN_BLOCK``; any pattern length; k up
+        to ``cuda.sellers.MAX_K``)."""
         if self.myers_available(n):
             return True
+        from .cuda.sellers import kernel_takes
+
         return self.tables.P > 0 and kernel_takes(self._sellers_t(),
                                                   self.k)
 
@@ -168,14 +184,18 @@ class SellersScanner:
         t = self.tables
         eos = max(int(t.eos_code), 0)
         if kind == "myers":
+            from .cuda.myers import myers_pairs
+
             return myers_pairs(codes_dev, n, self._myers_t(), eos, self.k,
                                cap)
+        from .cuda.sellers import sellers_scan
+
         return sellers_scan(codes_dev, n, self._sellers_on(codes_dev.device),
                             eos, self.k, self.indels, cap)
 
     def _kind(self, n: int) -> str:
         if self.myers_available(n):
-            self._route("Myers bit-vector k-edit CUDA kernel"
+            self._route("Myers bit-vector k-edit CUDA kernel (myers.cu)"
                         if self.device.type == "cuda"
                         else "Myers bit-vector k-edit scan (plain PyTorch "
                         "on the CPU)")
@@ -184,7 +204,7 @@ class SellersScanner:
             raise NotImplementedError(
                 f"no k-edit kernel takes P={self.tables.P}, "
                 f"Lmax={self.tables.Lmax}, k={self.k}")
-        self._route("Sellers row-DP k-edit CUDA kernel"
+        self._route("Sellers row-DP k-edit CUDA kernel (sellers.cu)"
                     if self.device.type == "cuda"
                     else "Sellers row-DP k-edit scan (plain PyTorch on the "
                     "CPU)")
@@ -278,7 +298,8 @@ class SellersScanner:
             from ..parallel.shard import sharded_sellers_scan
 
             self._route("Sellers row-DP k-edit %s sharded over %d devices"
-                        % ("CUDA kernel" if self.device.type == "cuda"
+                        % ("CUDA kernel (sellers.cu)"
+                           if self.device.type == "cuda"
                            else "scan (plain PyTorch)", self.mesh.size))
             yield from sharded_sellers_scan(self, codes, self.mesh)
             if self.progress:
@@ -293,7 +314,7 @@ class SellersScanner:
                 raise NotImplementedError(
                     f"no k-edit kernel takes P={self.tables.P}, "
                     f"Lmax={self.tables.Lmax}, k={self.k}")
-            self._route("Sellers row-DP k-edit CUDA kernel"
+            self._route("Sellers row-DP k-edit CUDA kernel (sellers.cu)"
                         if self.device.type == "cuda"
                         else "Sellers row-DP k-edit scan (plain PyTorch on "
                         "the CPU)")

@@ -6,18 +6,27 @@ relation per pattern, position and code).  The JAX ``conv_weights`` ends
 in a bfloat16 cast that needs ``ml_dtypes``, which ships with jax, so the
 port builds the same weights here in float32 (:func:`conv_weights_f32`)
 and moves them to the device once per scanner (:func:`device_tables`).
+The host build imports no torch; :func:`device_tables` imports it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
 from ..io.database import SeqDB
 from ..io.patterns import PatternSet
 from ..utils.iupac import COMPATIBLE
+
+if TYPE_CHECKING:
+    import torch
+
+# the extension gate's accept words (``gate.GateTables``) hold one bit per
+# code below this (int32, bit 30 the out-of-range sentinel): wider
+# alphabets take the ungated routes
+GATE_ALPHA = 30
 
 
 @dataclass
@@ -103,6 +112,8 @@ def conv_weights_f32(tables, k: int, poison_eos: bool) -> np.ndarray:
 
 def device_tables(tables, k: int, poison_eos: bool, device) -> DeviceTables:
     """The numpy ``PatternTables`` as the port's device tensors."""
+    import torch
+
     w = conv_weights_f32(tables, k, poison_eos)
     lengths = np.asarray(tables.lengths, np.int32)
     device = torch.device(device)

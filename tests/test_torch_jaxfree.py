@@ -15,8 +15,8 @@ Xspace) against the JAX app's bytes, and for every one of the 21 tools
 that reach no scanner in one interpreter that first imports each of
 their 19 modules, and for primer_match sharded over a 4-entry CPU mesh
 after importing the three ``parallel`` modules of the mesh; a source
-scan checks every file of the package, ``chip_smoke.py`` and
-``kernel_probe.py``.
+scan checks every file of the package, ``chip_smoke.py``,
+``kernel_probe.py`` and the ``sat_torch`` launcher.
 """
 
 import contextlib
@@ -431,7 +431,8 @@ JAX_PKG_IMPORT = re.compile(
 
 def test_no_file_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "kernel_probe.py"]
+                                         REPO / "kernel_probe.py",
+                                         REPO / "sat_torch"]
     assert len(files) >= 12
     for mod in ("ops/cuda/slots.py", "ops/gapped_seeds.py",
                 "models/pcr_match.py", "apps/pcr_match.py",

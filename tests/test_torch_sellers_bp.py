@@ -9,7 +9,7 @@ after it, nothing reported at the EOS); ragged lengths read at each
 pattern's own top bit; the text cut into segments with a warm-up halo of
 Lmax + k rounded up to 32 characters, text outside [0, n) read as EOS.
 The model runs on the kernel's own accept words (``SellersTables.peq``)
-and is held against ``sellers_ref`` (the plain version) on 25 shapes and
+and is held against ``sellers_ref`` (the plain version) on 26 shapes and
 against the JAX scanner on four (its XLA block DP on three, its Pallas
 kernel in interpret mode on one).  Tolerance 0: every quantity is an integer.
 The kernel itself is held against ``sellers_ref`` on the card by the
@@ -95,7 +95,7 @@ def lane_counts(txt, start, own0, n, peq, m, alpha, eos, k, p, out):
     """One thread without indels: q bit planes of saturating counters."""
     W, top = (m + 31) >> 5, (m - 1) & 31
     s = k + 1
-    q = next(q for q in (1, 2, 4, 8) if s < 1 << q)  # planes past s: zero
+    q = next(q for q in (1, 2, 4, 8, 16) if s < 1 << q)  # past s: zero
 
     def fresh():
         return [M32 if (s >> i) & 1 else 0 for i in range(q)]
@@ -222,6 +222,8 @@ SHAPES = {
     "no indels k>=m": (3, False, [1, 2, 3, 6], 5, 0.2, 1, 64, 0.0),
     "no indels m 1 to 100": (2, False, [1, 31, 32, 33, 99, 100], 5, 0.02, 1,
                              256, 0.0),
+    "no indels k255 (16 planes)": (255, False, [300, 290], 5, 0.01, 2, 256,
+                                   0.0),
     "IUPAC classes": (2, True, [35, 40, 22], 16, 0.03, 2, 64, 0.3),
     "IUPAC classes, no indels": (2, False, [35, 40], 16, 0.03, 2, 64, 0.3),
     "41-code alphabet": (1, True, [34, 40, 12], 41, 0.03, 1, 64, 0.0),
