@@ -1,0 +1,94 @@
+"""A run with the timed path broken underneath comes out not correct:
+one test for each fault the cells can have, and the control (the plain
+reference with one of the configuration's guarantees broken, in the
+program's place).  The look for a card is skipped; the program runs on
+the CPU at a tiny size."""
+
+from dataclasses import dataclass
+from functools import partial
+
+import pytest
+
+from conftest import ROOT, TINY
+from gpubench import harness
+from gpubench.control import ControlProgram
+from gpubench.entries.primer_match_model import Program
+
+
+@dataclass
+class _Alignment:
+    end: int
+    edits: int
+
+    def editdist(self):
+        return self.edits
+
+
+@dataclass
+class _Hit:
+    pid: int
+    alignment: _Alignment
+
+    @property
+    def end(self):
+        return self.alignment.end
+
+
+class AlteredHit(Program):
+    """One hit of each query reports an end one past its own."""
+
+    def query(self, patterns, phases=None):
+        hits = super().query(patterns, phases)
+        if hits:
+            h = hits[len(hits) // 2]
+            hits[len(hits) // 2] = _Hit(h.pid, _Alignment(
+                h.end + 1, h.alignment.editdist()))
+        return hits
+
+
+class HalfLeftOut(Program):
+    """Half of each query's patterns left out."""
+
+    def query(self, patterns, phases=None):
+        return super().query(patterns[: len(patterns) // 2], phases)
+
+
+class Unchanged(Program):
+    """Each query answered with nothing, as if the scan never ran."""
+
+    def query(self, patterns, phases=None):
+        super().query(patterns[:1], phases)
+        return []
+
+
+def run(workload, program_cls, seed=2**31 + 21):
+    cfg_over, spec_over = TINY[workload]
+    return harness.run_cell(ROOT, workload, seed, 0.5, False, device="cpu",
+                            cfg_over=cfg_over, spec_over=spec_over,
+                            program_cls=program_cls)
+
+
+@pytest.mark.parametrize("workload", sorted(TINY))
+@pytest.mark.parametrize("fault", [AlteredHit, HalfLeftOut, Unchanged],
+                         ids=["hit-altered", "half-left-out", "unchanged"])
+def test_a_broken_path_is_not_correct(workload, fault):
+    r = run(workload, fault)
+    assert r["correct"] is False
+    assert r["checks"]["missing_hits"]["value"] > 0
+
+
+@pytest.mark.parametrize("workload", sorted(TINY))
+def test_the_sound_path_is_correct(workload):
+    r = run(workload, None)
+    assert r["correct"] is True
+    assert all(c["value"] == 0 for c in r["checks"].values())
+
+
+@pytest.mark.parametrize("workload", sorted(TINY))
+@pytest.mark.parametrize("seed", [2**31 + 21, 2**31 + 22])
+def test_the_control_is_not_correct(workload, seed):
+    spec = harness.cell_files(ROOT, workload)[3]
+    r = run(workload, partial(ControlProgram, control=spec["control"]), seed)
+    assert r["correct"] is False
+    checks = r["checks"]
+    assert checks["missing_hits"]["value"] + checks["extra_hits"]["value"] > 0
