@@ -630,9 +630,6 @@ def device_route_vs_host(name, tables, codes, dev):
     the native host shift-and; fails unless the filter kernel ran."""
     from sequence_alignment_tools_tpu_torch.ops.host_scan import HostShiftAnd
     from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
-    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
-        scan_occupancy,
-    )
 
     host = HostShiftAnd(tables, 0, False)
     if not host.available():
@@ -640,9 +637,9 @@ def device_route_vs_host(name, tables, codes, dev):
     want = list(host.scan(codes))
     sc = ConvScanner(tables, k=0, device=dev)
     sc.use_host = False
-    scan_occupancy.launches = 0
+    ran = Launches()
     got = list(sc.scan(codes))
-    launches = scan_occupancy.launches
+    launches = ran["scan_occupancy"]
     if launches < 1:
         raise AssertionError(f"{name}: the device route never launched "
                              "scan_occupancy")
@@ -1079,26 +1076,26 @@ KERNEL_NAMES = ("scan_occupancy", "seed_gate", "myers_pairs", "sellers_scan",
                 "scan_slots", "gate_slots")
 
 
-def kernel_fns():
-    """{name: wrapper} of the six kernels (each counts its launches)."""
-    from sequence_alignment_tools_tpu_torch.ops.cuda.myers import myers_pairs
-    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
-        scan_occupancy,
-    )
-    from sequence_alignment_tools_tpu_torch.ops.cuda.seed_gate import (
-        seed_gate,
-    )
-    from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
-        sellers_scan,
-    )
-    from sequence_alignment_tools_tpu_torch.ops.cuda.slots import (
-        gate_slots,
-        scan_slots,
-    )
+KERNEL_WRAPPERS = ("scan_occupancy", "seed_gate", "myers_pairs",
+                   "sellers_scan", "scan_slots", "gate_slots")
 
-    return {"scan_occupancy": scan_occupancy, "seed_gate": seed_gate,
-            "myers_pairs": myers_pairs, "sellers_scan": sellers_scan,
-            "scan_slots": scan_slots, "gate_slots": gate_slots}
+
+class Launches:
+    """The six kernels' launches (the ``launch.<wrapper>`` counters of
+    the port's ``utils/trace``) since this was made: ``n["seed_gate"]``,
+    or every one by ``n.all()``."""
+
+    def __init__(self):
+        from sequence_alignment_tools_tpu_torch.utils import trace
+
+        self.trace = trace
+        self.base = {k: trace.total("launch." + k) for k in KERNEL_WRAPPERS}
+
+    def __getitem__(self, name):
+        return self.trace.total("launch." + name) - self.base[name]
+
+    def all(self):
+        return {k: self[k] for k in KERNEL_WRAPPERS}
 
 
 def run_tool(tool, argv, out=None):
@@ -1175,16 +1172,14 @@ def device_vs_host(label, tool, argv, need, host, out=None):
     run is only timed (its callers check its output otherwise).  Returns
     {out, launches, t0 (the device run's start), wall (s), device_ms,
     host_s}."""
-    fns = kernel_fns()
     os.environ["SAT_HOST_SCAN"] = "0"
-    for fn in fns.values():
-        fn.launches = 0
+    ran = Launches()
     try:
         got, wall, prof, t_dev0 = device_busy(
             lambda: run_tool(tool, argv, out))
     finally:
         del os.environ["SAT_HOST_SCAN"]
-    launches = {name: fn.launches for name, fn in fns.items()}
+    launches = ran.all()
     dev_ms = device_rows(prof)[1]
     missing = [name for name in need if launches[name] < 1]
     if missing:
@@ -1623,16 +1618,14 @@ def scale_phase(tmp, smi):
                (ConvScanner, "scan_gated"),
                (PrimerMatchModel, "_halves_emit_arrays")) as took:
         os.environ["SAT_HOST_SCAN"] = "0"
-        fns = kernel_fns()
-        for fn in fns.values():
-            fn.launches = 0
+        ran = Launches()
         try:
             got, wall, prof, _t = device_busy(
                 lambda: run_tool("xmers", argv, out=xout))
             dev_ms = device_rows(prof)[1]
         finally:
             del os.environ["SAT_HOST_SCAN"]
-        launches = {name: fn.launches for name, fn in fns.items()}
+        launches = ran.all()
     uploads = device_form.uploads - up0
     import gc
 
@@ -2505,9 +2498,6 @@ def mesh_rank_worker(rank, port, tmp):
     from sequence_alignment_tools_tpu_torch.io.database import SeqDB
     from sequence_alignment_tools_tpu_torch.io.patterns import build_pattern_set
     from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
-    from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
-        scan_occupancy,
-    )
     from sequence_alignment_tools_tpu_torch.ops.tables import (
         build_tables,
         device_tables,
@@ -2534,12 +2524,12 @@ def mesh_rank_worker(rank, port, tmp):
                                     dt.lengths, tables.alpha, mesh)
     sc = ConvScanner(tables, k=0, device=dev)
     list(sharded_pallas_scan_hits_2d(sc, codes, mesh))
-    scan_occupancy.launches = 0
+    ran = Launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hits = list(sharded_pallas_scan_hits_2d(sc, codes, mesh))
     wall = time.perf_counter() - t0
-    launches = scan_occupancy.launches
+    launches = ran["scan_occupancy"]
     sc1 = ConvScanner(tables, k=0, device=dev)
     sc1._cap_mb = sc1._hit_cap = 1
     hits1 = list(sharded_pallas_scan_hits_2d(sc1, codes, mesh))
@@ -2653,10 +2643,9 @@ def mesh_phase(smi, dev, db, ps, got, s_main, got1, s_k1, sdb, psl, gotl,
         ``want`` and each kernel launch at least once a shard (more on an
         overflow retry); returns (launches, uploads)."""
         uploads = device_form.uploads
-        for k in kernels:
-            k.launches = 0
+        ran = Launches()
         out = fn()
-        launches = {k.__name__: k.launches for k in kernels}
+        launches = {k.__name__: ran[k.__name__] for k in kernels}
         if out != want:
             raise AssertionError(f"mesh: {label} differs from unsharded")
         if any(v < MESH_N * per_run for v in launches.values()):
@@ -2742,12 +2731,12 @@ def mesh_phase(smi, dev, db, ps, got, s_main, got1, s_k1, sdb, psl, gotl,
     sb = ConvScanner(sc.tables, k=0, device=dev)
     sb.mesh = mesh
     uploads0 = device_form.uploads
-    scan_occupancy.launches = 0
+    ran = Launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got_blocks = dict(sb.scan_stream(iter(blocks)))
     wall = time.perf_counter() - t0
-    launches = scan_occupancy.launches
+    launches = ran["scan_occupancy"]
     uploads = device_form.uploads - uploads0
     if [got_blocks[i] for i in range(len(blocks))] != want_blocks:
         raise AssertionError("mesh: scan_stream differs from unsharded")
@@ -2904,9 +2893,9 @@ def main():
         f"{time.perf_counter() - t0:.3f} s")
     sc = ConvScanner(tables, k=0, device=dev)
     sc.use_host = False
-    scan_occupancy.launches = 0
+    ran = Launches()
     got = list(sc.scan(codes))
-    main_launches = scan_occupancy.launches
+    main_launches = ran["scan_occupancy"]
     if main_launches < 1:
         raise AssertionError("main path never launched scan_occupancy")
     if got != want:
@@ -3014,12 +3003,12 @@ def main():
     # 4. serving: scan_stream over 16 blocks of 2^24
     blocks = [codes[i * BLOCK_N : (i + 1) * BLOCK_N] for i in range(16)]
     want_blocks = [list(sc.scan(b)) for b in blocks]
-    scan_occupancy.launches = 0
+    ran = Launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got_blocks = dict(sc.scan_stream(iter(blocks)))
     s_stream = time.perf_counter() - t0
-    stream_launches = scan_occupancy.launches
+    stream_launches = ran["scan_occupancy"]
     if [got_blocks[i] for i in range(16)] != want_blocks:
         raise AssertionError("scan_stream differs from per-block scan")
     if stream_launches < 16:
@@ -3154,10 +3143,10 @@ def main():
     want1 = list(m_host.engine_hits())
     log(f"k=1 host route (native shift-and seeds, batched extension): "
         f"{len(want1)} engine hits in {time.perf_counter() - t0:.3f} s")
-    scan_occupancy.launches = seed_gate.launches = 0
+    ran = Launches()
     got1 = list(m_dev.engine_hits())
-    k1_launches = {"scan_occupancy": scan_occupancy.launches,
-                   "seed_gate": seed_gate.launches}
+    k1_launches = {"scan_occupancy": ran["scan_occupancy"],
+                   "seed_gate": ran["seed_gate"]}
     if min(k1_launches.values()) < 1:
         raise AssertionError(f"k=1 main path skipped a kernel: {k1_launches}")
     if got1 != want1 or not got1:
@@ -3321,9 +3310,9 @@ def main():
                                                 cap))
         log(f"sellers_scan {name} at n=2^15 on {smi}: kernel {b_ms:.4f} ms, "
             f"plain {b_plain:.4f} ms (CUDA events)")
-    before = sellers_scan.launches
+    ran = Launches()
     big_row = sellers_scan(big_dev, BIG_N, st_big, EOS, 2, True, 1 << 20)
-    big_launches = sellers_scan.launches - before
+    big_launches = ran["sellers_scan"]
     t0 = time.perf_counter()
     ends, pids, dists = split_host_pairs(t_big, 2, codes[:BIG_N])
     s_native = time.perf_counter() - t0
@@ -3396,10 +3385,10 @@ def main():
     want2 = list(m2h.engine_hits())
     log(f"k=2 host route (native Sellers rows, cluster verify): "
         f"{len(want2)} engine hits in {time.perf_counter() - t0:.3f} s")
-    myers_pairs.launches = sellers_scan.launches = 0
+    ran = Launches()
     got2 = list(m2.engine_hits())
-    k2_launches = {"myers_pairs": myers_pairs.launches,
-                   "sellers_scan": sellers_scan.launches}
+    k2_launches = {"myers_pairs": ran["myers_pairs"],
+                   "sellers_scan": ran["sellers_scan"]}
     if k2_launches["myers_pairs"] < 1:
         raise AssertionError(f"k=2 main path skipped Myers: {k2_launches}")
     if got2 != want2 or not got2:
@@ -3470,9 +3459,9 @@ def main():
     mKh = PrimerMatchModel(db, ps1, k=2, indels=False, device=dev)
     mKh.use_host = True
     wantK = list(mKh.engine_hits())
-    scan_occupancy.launches = 0
+    ran = Launches()
     gotK = list(mK.engine_hits())
-    if scan_occupancy.launches < 1:
+    if ran["scan_occupancy"] < 1:
         raise AssertionError("-K 2 main path never launched scan_occupancy")
     if gotK != wantK or not gotK:
         raise AssertionError(f"-K 2 device route differs from host route: "
@@ -3512,10 +3501,10 @@ def main():
     log(f"Sellers route host reference (native Sellers rows over pattern "
         f"groups): {len(hends)} candidates, {len(wantl)} engine hits in "
         f"{time.perf_counter() - t0:.3f} s")
-    myers_pairs.launches = sellers_scan.launches = 0
+    ran = Launches()
     gotl = list(ml.engine_hits())
-    sel_launches = {"myers_pairs": myers_pairs.launches,
-                    "sellers_scan": sellers_scan.launches}
+    sel_launches = {"myers_pairs": ran["myers_pairs"],
+                    "sellers_scan": ran["sellers_scan"]}
     if sel_launches["sellers_scan"] < 1:
         raise AssertionError(f"Sellers route skipped the kernel: "
                              f"{sel_launches}")
@@ -3708,7 +3697,7 @@ def main():
     psc.use_host = False
     if psc._radix_eligible() or wt_many.P <= psc._PBLOCK:
         raise AssertionError("the degenerate set is not pattern-blocked")
-    scan_occupancy.launches = 0
+    ran = Launches()
     got_pb = list(psc.scan(wdb.codes))
     want_pb = grouped_host_scan(wt_many, wdb.codes)
     if got_pb != want_pb or not got_pb:
@@ -3716,7 +3705,7 @@ def main():
                              f"shift-and: {len(got_pb)} vs {len(want_pb)}")
     log(f"pattern-blocked rung: P={wt_many.P} degenerate primers, n=2^20: "
         f"{len(got_pb)} hits == native shift-and over pattern groups, "
-        f"scan_occupancy launches {scan_occupancy.launches}")
+        f"scan_occupancy launches {ran['scan_occupancy']}")
     del psc
 
     # 11. the many-pattern path: 50,000 literal 20-mers from the database
@@ -3734,17 +3723,17 @@ def main():
     want_e, want_p = xhost.scan_seed_arrays(pre)
     log(f"p50k host census (native threaded mer-hash) over 2^26: "
         f"{len(want_e)} hits in {time.perf_counter() - t0:.3f} s")
-    scan_slots.launches = 0
+    ran = Launches()
     got_e, got_p = xsc.scan_seed_arrays(pre)
-    if scan_slots.launches < 1:
+    if ran["scan_slots"] < 1:
         raise AssertionError("p50k: the census never launched scan_slots")
     if not (np.array_equal(got_e, want_e) and np.array_equal(got_p, want_p)) \
             or not len(got_e):
         raise AssertionError(f"p50k device census differs from the host "
                              f"census: {len(got_e)} vs {len(want_e)} hits")
-    scan_slots.launches = 0
+    ran = Launches()
     ends50, pids50 = xsc.scan_seed_arrays(codes)
-    p50k_launches = scan_slots.launches
+    p50k_launches = ran["scan_slots"]
     if p50k_launches < 1 or len(np.unique(pids50)) != 50_000:
         raise AssertionError(f"p50k at 2^28: {p50k_launches} launches, "
                              f"{len(np.unique(pids50))} patterns found")
@@ -3799,9 +3788,9 @@ def main():
         f"{time.perf_counter() - t0:.3f} s")
     mx_pre = PrimerMatchModel(pdb, xps, k=1, indels=True, device=dev)
     mx_pre.use_host = False
-    scan_slots.launches = gate_slots.launches = 0
+    ran = Launches()
     got_k = mx_pre.engine_hits_arrays()
-    if min(scan_slots.launches, gate_slots.launches) < 1:
+    if min(ran["scan_slots"], ran["gate_slots"]) < 1:
         raise AssertionError("xk1 prefix run skipped a slot kernel")
     if not all(np.array_equal(g, w) for g, w in zip(got_k, want_k)) \
             or not len(got_k[0]):
@@ -3819,13 +3808,12 @@ def main():
     mx.engine_hits_arrays()  # tables, gate, caps
     log(f"xk1 set-up and first run (100,000 half seeds): "
         f"{time.perf_counter() - t0:.3f} s")
-    scan_slots.launches = gate_slots.launches = 0
-    scan_occupancy.launches = seed_gate.launches = 0
+    ran = Launches()
     hes, hp, hv = mx.engine_hits_arrays()
-    xk1_launches = {"scan_slots": scan_slots.launches,
-                    "gate_slots": gate_slots.launches,
-                    "scan_occupancy": scan_occupancy.launches,
-                    "seed_gate": seed_gate.launches}
+    xk1_launches = {"scan_slots": ran["scan_slots"],
+                    "gate_slots": ran["gate_slots"],
+                    "scan_occupancy": ran["scan_occupancy"],
+                    "seed_gate": ran["seed_gate"]}
     if xk1_launches["scan_slots"] < 1 or xk1_launches["gate_slots"] < 1:
         raise AssertionError(f"xk1 main path skipped a kernel: "
                              f"{xk1_launches}")
@@ -3951,11 +3939,11 @@ def main():
     def pair_key(h):
         return (h.pid, h.pid1, h.pe, h.pe1, h.amplicon)
 
-    scan_occupancy.launches = 0
+    ran = Launches()
     want_pairs = [pair_key(h) for h in mp.pairs()]
-    if scan_occupancy.launches < 1 or len(want_pairs) < 10:
+    if ran["scan_occupancy"] < 1 or len(want_pairs) < 10:
         raise AssertionError(f"pcr_match: {len(want_pairs)} pairs, "
-                             f"{scan_occupancy.launches} launches")
+                             f"{ran['scan_occupancy']} launches")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runs = [[pair_key(h) for h in run] for run in mp.pairs_stream(5)]
@@ -3987,9 +3975,9 @@ def main():
     t0 = time.perf_counter()
     want_pep = list(mpep_host.engine_hits())
     s_pep_host = time.perf_counter() - t0
-    scan_occupancy.launches = 0
+    ran = Launches()
     got_pep = list(mpep.engine_hits())
-    pep_launches = scan_occupancy.launches
+    pep_launches = ran["scan_occupancy"]
     if pep_launches < 1 or got_pep != want_pep or len(want_pep) < 10:
         raise AssertionError(f"peptide path: {len(got_pep)} vs "
                              f"{len(want_pep)} hits, {pep_launches} "
@@ -4026,9 +4014,9 @@ def main():
     mwide_host = PrimerMatchModel(wide16, wps, k=0, wc=True, device=dev)
     mwide_host.use_host = True
     want_wide = list(mwide_host.engine_hits())
-    scan_occupancy.launches = 0
+    ran = Launches()
     got_wide = list(mwide.engine_hits())
-    wide_launches = scan_occupancy.launches
+    wide_launches = ran["scan_occupancy"]
     if wide_launches < 1 or got_wide != want_wide or len(want_wide) < 10:
         raise AssertionError(f"wide-alphabet path: {len(got_wide)} vs "
                              f"{len(want_wide)} hits, {wide_launches} "
@@ -4108,18 +4096,11 @@ def main():
             argv = ["-i", db_file] + pats_flag + flags
             long_set = pats_flag[1] == lfile
             os.environ["SAT_HOST_SCAN"] = "0"
-            for fn in (scan_occupancy, seed_gate, myers_pairs, sellers_scan,
-                       scan_slots, gate_slots):
-                fn.launches = 0
+            ran = Launches()
             t0 = time.perf_counter()
             out_dev = run_tool(tool, argv)
             s_cli = time.perf_counter() - t0
-            cli_launches = {"scan_occupancy": scan_occupancy.launches,
-                            "seed_gate": seed_gate.launches,
-                            "myers_pairs": myers_pairs.launches,
-                            "sellers_scan": sellers_scan.launches,
-                            "scan_slots": scan_slots.launches,
-                            "gate_slots": gate_slots.launches}
+            cli_launches = ran.all()
             del os.environ["SAT_HOST_SCAN"]
             # the long primers exceed one native Sellers machine: the
             # host run takes the machines over pattern groups (their gs

@@ -6,14 +6,16 @@ strings (``-p``/``-P``), FASTA pattern files (``-F``), UniSTS (``-S``)
 exact-end constraints folded from ``-s/-e/-5/-3`` exactly as
 primer_match.cc:991-1080 does (negative = "~"-inexact sense).
 
-The port's copy of ``sequence_alignment_tools_tpu/io/patterns.py``, kept
-byte-compatible with it (the port imports nothing of the JAX package).
+The port's copy of ``sequence_alignment_tools_tpu/io/patterns.py`` (the
+port imports nothing of the JAX package); :func:`build_pattern_set` is
+the ``io.pattern_set`` span of :mod:`..utils.trace`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..utils import trace
 from ..utils.iupac import reverse_comp, reverse
 
 
@@ -229,23 +231,24 @@ def build_pattern_set(
     deflines: list[str] | None = None,
     sts: list[STSEntry] | None = None,
 ) -> PatternSet:
-    if uppercase:
-        patterns = [p.upper() for p in patterns]
-    n = len(patterns)
-    ps = PatternSet(n_forward=n, deflines=deflines or [], sts=sts or [])
-    both = rev_comp or translate
-    ps.patterns = [""] * (1 + (2 * n if both else n))
-    ps.esb = [0] * len(ps.patterns)
-    ps.eeb = [0] * len(ps.patterns)
-    for i, p in enumerate(patterns, start=1):
-        ps.patterns[i] = p
-        ps.esb[i], ps.eeb[i] = _fold_constraints(
-            len(p), stlen, edlen, fplen, tplen, is_rc=False
-        )
-        if both:
-            rc = reverse(p) if translate else reverse_comp(p)
-            ps.patterns[i + n] = rc
-            ps.esb[i + n], ps.eeb[i + n] = _fold_constraints(
-                len(p), stlen, edlen, fplen, tplen, is_rc=True
+    with trace.span("io.pattern_set"):
+        if uppercase:
+            patterns = [p.upper() for p in patterns]
+        n = len(patterns)
+        ps = PatternSet(n_forward=n, deflines=deflines or [], sts=sts or [])
+        both = rev_comp or translate
+        ps.patterns = [""] * (1 + (2 * n if both else n))
+        ps.esb = [0] * len(ps.patterns)
+        ps.eeb = [0] * len(ps.patterns)
+        for i, p in enumerate(patterns, start=1):
+            ps.patterns[i] = p
+            ps.esb[i], ps.eeb[i] = _fold_constraints(
+                len(p), stlen, edlen, fplen, tplen, is_rc=False
             )
-    return ps
+            if both:
+                rc = reverse(p) if translate else reverse_comp(p)
+                ps.patterns[i + n] = rc
+                ps.esb[i + n], ps.eeb[i + n] = _fold_constraints(
+                    len(p), stlen, edlen, fplen, tplen, is_rc=True
+                )
+        return ps

@@ -56,6 +56,7 @@ from ..io.patterns import PatternSet
 from ..ops.conv_scan import ConvScanner
 from ..ops.sellers import SellersScanner
 from ..ops.tables import PatternTables, build_tables
+from ..utils import trace
 
 
 @dataclass
@@ -297,47 +298,50 @@ class PrimerMatchModel:
         mesh="auto",
         device=None,
     ):
-        if mesh == "auto":
-            # the cached no-mesh answer first: a host-routed one-shot run
-            # must not ask the CUDA driver for its device count
-            from ..parallel.devcache import peek_no_mesh
+        # the id of this request's spans (utils/trace)
+        self.request = trace.new_request()
+        with trace.span("model.init", self.request):
+            if mesh == "auto":
+                # the cached no-mesh answer first: a host-routed one-shot run
+                # must not ask the CUDA driver for its device count
+                from ..parallel.devcache import peek_no_mesh
 
-            if peek_no_mesh():
-                mesh = None
-            else:
-                from ..parallel.shard import auto_mesh
+                if peek_no_mesh():
+                    mesh = None
+                else:
+                    from ..parallel.shard import auto_mesh
 
-                mesh = auto_mesh(device=device)
-        self.mesh = mesh
-        self.db = db
-        self.ps = ps
-        self.k = k
-        self.indels = indels
-        self.wc = wc
-        self.textn = textn
-        self.dna_mut = dna_mut
-        self.report_interval = report_interval
-        self.seedlen = seedlen
-        self.node = node
-        self.engine = select_engine(db, ps, k, wc, seedlen, node)
-        # the unsharded rungs run on the mesh's first device; resolved
-        # (torch imported) when a device route first reads it
-        self._device_arg = (mesh.devices[0]
-                            if mesh is not None and device is None
-                            else device)
-        # verbose-mode progress reporter, attached to every scanner
-        self.progress = None
-        eos = chr(db.eos_char)
-        self._final_aligner = EditDistAligner(
-            k, eos, wc, textn, indels, dna_mut, yesno=False)
-        if self.engine == "filter":
-            self._cluster_aligner = EditDistAligner(
-                k, eos, wc, textn, indels, dna_mut, yesno=True)
-        if self.engine in ("halves", "bases"):
-            self._extender = Extender(k, eos, wc, textn, indels, dna_mut)
-        if self.engine in ("hash", "gs"):
-            self._hash_aligner = EditDistAligner(
-                k, eos, wc, textn, indels, dna_mut, yesno=True)
+                    mesh = auto_mesh(device=device)
+            self.mesh = mesh
+            self.db = db
+            self.ps = ps
+            self.k = k
+            self.indels = indels
+            self.wc = wc
+            self.textn = textn
+            self.dna_mut = dna_mut
+            self.report_interval = report_interval
+            self.seedlen = seedlen
+            self.node = node
+            self.engine = select_engine(db, ps, k, wc, seedlen, node)
+            # the unsharded rungs run on the mesh's first device; resolved
+            # (torch imported) when a device route first reads it
+            self._device_arg = (mesh.devices[0]
+                                if mesh is not None and device is None
+                                else device)
+            # verbose-mode progress reporter, attached to every scanner
+            self.progress = None
+            eos = chr(db.eos_char)
+            self._final_aligner = EditDistAligner(
+                k, eos, wc, textn, indels, dna_mut, yesno=False)
+            if self.engine == "filter":
+                self._cluster_aligner = EditDistAligner(
+                    k, eos, wc, textn, indels, dna_mut, yesno=True)
+            if self.engine in ("halves", "bases"):
+                self._extender = Extender(k, eos, wc, textn, indels, dna_mut)
+            if self.engine in ("hash", "gs"):
+                self._hash_aligner = EditDistAligner(
+                    k, eos, wc, textn, indels, dna_mut, yesno=True)
 
     _tail_exec = None
     _tailproc_c = None
@@ -372,9 +376,10 @@ class PrimerMatchModel:
 
     def close(self) -> None:
         """Stop the filter engine's tail processes, if any were started."""
-        if self._tailproc_c:
-            self._tailproc_c.close()
-        self._tailproc_c = None
+        with trace.span("model.close", self.request):
+            if self._tailproc_c:
+                self._tailproc_c.close()
+            self._tailproc_c = None
 
     def _attach(self, scanner):
         scanner.progress = self.progress
@@ -413,9 +418,10 @@ class PrimerMatchModel:
         """(tables, scanner) for the exact engines, built once per model
         (a resident database must not re-pay table builds or uploads)."""
         if self._exact_ctx_c is None:
-            tables = build_tables(self.ps, self.db, self.wc, self.textn)
-            scanner = self._attach(ConvScanner(
-                tables, k=0, device=self._device_arg))
+            with trace.span("model.tables", self.request):
+                tables = build_tables(self.ps, self.db, self.wc, self.textn)
+                scanner = self._attach(ConvScanner(
+                    tables, k=0, device=self._device_arg))
             self._exact_ctx_c = (tables, scanner)
         return self._exact_ctx_c
 
@@ -427,15 +433,17 @@ class PrimerMatchModel:
         tables, _scanner = self._exact_ctx()
         lengths = tables.lengths
         cands = []
-        for end, p0, _ in hits:
-            if self.engine == "exact_kt":
-                # keyword tree emits along output/fail chains: longest match
-                # first; duplicate patterns in reverse registration order
-                cands.append((end, -int(lengths[p0]), -p0))
-            else:
-                # shift-and emits in word/bit = registration order
-                cands.append((end, p0, p0))
-        cands.sort()
+        with trace.span("model.emit", self.request):
+            for end, p0, _ in hits:
+                if self.engine == "exact_kt":
+                    # keyword tree emits along output/fail chains: longest
+                    # match first; duplicate patterns in reverse
+                    # registration order
+                    cands.append((end, -int(lengths[p0]), -p0))
+                else:
+                    # shift-and emits in word/bit = registration order
+                    cands.append((end, p0, p0))
+            cands.sort()
         for end, _, key in cands:
             p0 = -key if self.engine == "exact_kt" else key
             yield end, p0 + 1, 0
@@ -519,10 +527,20 @@ class PrimerMatchModel:
         native extension, then the (pos asc, half-id desc) dedup order
         restored on the survivors only, since the extension is
         per-candidate independent."""
-        ps, k = self.ps, self.k
         owner, _scanner, batch, _dirs, _ext, _geomB = self._halves_ctx()
-        ok, hend, value = batch(ends, hids.astype(np.int32))
-        okidx = np.flatnonzero(ok)
+        with trace.span("model.extend", self.request):
+            ok, hend, value = batch(ends, hids.astype(np.int32))
+            okidx = np.flatnonzero(ok)
+        trace.count("cand.extend_in", len(ends))
+        trace.count("cand.extend_ok", len(okidx))
+        with trace.span("model.dedup", self.request):
+            return self._lasthit_dedup(owner, hids, ends, okidx, hend, value)
+
+    def _lasthit_dedup(self, owner, hids, ends, okidx, hend, value):
+        """The sequential lasthit + 2k dedup of the successful extensions
+        ``okidx``, in (pos asc, half-id desc) order: (ends, pids, values)
+        of the hits kept."""
+        ps, k = self.ps, self.k
         sub = okidx[np.lexsort((-hids[okidx], ends[okidx]))]
         dedup = 2 * k if self.indels else 0
         pids = np.ascontiguousarray(owner[hids[sub]])
@@ -582,8 +600,12 @@ class PrimerMatchModel:
         """(owner, scanner, batch extender, dirs, ext_pats, geomB) of the
         halves engine, built once per model (a resident database must not
         re-pay table builds, uploads or the scanner's converged caps)."""
-        if self._halves_ctx_c is not None:
-            return self._halves_ctx_c
+        if self._halves_ctx_c is None:
+            with trace.span("model.tables", self.request):
+                self._halves_ctx_c = self._halves_build()
+        return self._halves_ctx_c
+
+    def _halves_build(self):
         ps, k = self.ps, self.k
         halves: list[str] = [""]
         owner: list[int] = [0]
@@ -623,9 +645,8 @@ class PrimerMatchModel:
                 geomB[hid] = len(h2)
         batch = BatchSeedExtender(self._extender, self.db, dirs, ext_pats,
                                   la, ra, geomA, geomB)
-        self._halves_ctx_c = (np.asarray(owner, np.int64), scanner, batch,
-                              dirs, ext_pats, geomB)
-        return self._halves_ctx_c
+        return (np.asarray(owner, np.int64), scanner, batch, dirs, ext_pats,
+                geomB)
 
     def _seed_candidates(self, scanner, dirs, ext_pats, geomB, hid_of):
         """(ends [C] int64, hids [C] int64) seed-hit candidates of a
@@ -749,11 +770,12 @@ class PrimerMatchModel:
 
         k = self.k
         S = len(ext_pats)
-        gate = GateTables.from_seed_meta(
-            self.db, [ext_pats[hid_of(p0)] for p0 in range(S - 1)],
-            np.asarray([dirs[hid_of(p0)] for p0 in range(S - 1)]),
-            np.asarray([geomB[hid_of(p0)] for p0 in range(S - 1)]),
-            k, k if self.indels else 0, self.wc, self.textn)
+        with trace.span("model.gate", self.request):
+            gate = GateTables.from_seed_meta(
+                self.db, [ext_pats[hid_of(p0)] for p0 in range(S - 1)],
+                np.asarray([dirs[hid_of(p0)] for p0 in range(S - 1)]),
+                np.asarray([geomB[hid_of(p0)] for p0 in range(S - 1)]),
+                k, k if self.indels else 0, self.wc, self.textn)
         self._gate_cache = (scanner, gate)
         return gate
 
@@ -774,8 +796,12 @@ class PrimerMatchModel:
     def _bases_ctx(self):
         """(owner, seeds, scanner, batch extender, dirs, ext_pats, geomB)
         of the bases engine, built once per model."""
-        if self._bases_ctx_c is not None:
-            return self._bases_ctx_c
+        if self._bases_ctx_c is None:
+            with trace.span("model.tables", self.request):
+                self._bases_ctx_c = self._bases_build()
+        return self._bases_ctx_c
+
+    def _bases_build(self):
         ps, k = self.ps, self.k
         seeds: list[str] = [""]
         owner: list[int] = [0]
@@ -825,9 +851,7 @@ class PrimerMatchModel:
                 geomB[sid] = len(seeds[sid])
         batch = BatchSeedExtender(self._extender, self.db, dirs, ext_pats,
                                   la, ra, geomA, geomB)
-        self._bases_ctx_c = (
-            owner, seeds, scanner, batch, dirs, ext_pats, geomB)
-        return self._bases_ctx_c
+        return owner, seeds, scanner, batch, dirs, ext_pats, geomB
 
     def _bases_engine(self):
         """exact_bases (exact_bases.cc:69-160): constrained-seed
@@ -842,17 +866,21 @@ class PrimerMatchModel:
         extension first, emission order restored on the survivors."""
         owner, seeds, _scanner, batch, _d, _e, _g = self._bases_ctx()
         S = len(seeds)
-        ok, hend, value = batch(ends, sids.astype(np.int32))
-        okidx = np.flatnonzero(ok)
-        if self.node == 10:
-            # shift_and inner engine emits in registration (bit) order
-            sub = okidx[np.lexsort((sids[okidx], ends[okidx]))]
-        else:
-            # keyword-tree order: end asc, longer seed first, duplicates
-            # in reverse registration order
-            slen = np.fromiter((len(s) for s in seeds), np.int64, S)
-            sub = okidx[np.lexsort(
-                (-sids[okidx], -slen[sids[okidx]], ends[okidx]))]
+        with trace.span("model.extend", self.request):
+            ok, hend, value = batch(ends, sids.astype(np.int32))
+            okidx = np.flatnonzero(ok)
+        trace.count("cand.extend_in", len(ends))
+        trace.count("cand.extend_ok", len(okidx))
+        with trace.span("model.emit", self.request):
+            if self.node == 10:
+                # shift_and inner engine emits in registration (bit) order
+                sub = okidx[np.lexsort((sids[okidx], ends[okidx]))]
+            else:
+                # keyword-tree order: end asc, longer seed first,
+                # duplicates in reverse registration order
+                slen = np.fromiter((len(s) for s in seeds), np.int64, S)
+                sub = okidx[np.lexsort(
+                    (-sids[okidx], -slen[sids[okidx]], ends[okidx]))]
         for i in sub:
             yield int(hend[i]), owner[int(sids[i])], int(value[i])
 
@@ -1066,8 +1094,12 @@ class PrimerMatchModel:
         (a resident database must not re-pay table builds or uploads):
         k-edit takes the :class:`SellersScanner`, ``-K`` the poisoned
         k-mismatch :class:`ConvScanner`."""
-        if self._filter_ctx_c is not None:
-            return self._filter_ctx_c
+        if self._filter_ctx_c is None:
+            with trace.span("model.tables", self.request):
+                self._filter_ctx_c = self._filter_build()
+        return self._filter_ctx_c
+
+    def _filter_build(self):
         from ..engine.verify import BatchVerifier
 
         ps, k = self.ps, self.k
@@ -1084,8 +1116,7 @@ class PrimerMatchModel:
             [ps.esb[pid] for pid in range(1, ps.n_total + 1)],
             [ps.eeb[pid] for pid in range(1, ps.n_total + 1)],
         )
-        self._filter_ctx_c = (scanner, verifier)
-        return self._filter_ctx_c
+        return scanner, verifier
 
     def _filter_engine(self):
         """filter_bitvec (filter_bitvec.cc:73-183): the k-edit candidate
@@ -1223,20 +1254,25 @@ class PrimerMatchModel:
     # -- final hits (reference main-loop re-verification) -------------------
 
     def hits(self) -> Iterator[Hit]:
+        """Every hit, re-verified as the reference's main loop does.  Its
+        ``model.hits`` span runs from the first resumption to the end,
+        the consumer's time between hits included."""
         ps, k = self.ps, self.k
-        for end, pid, _ in self.engine_hits():
-            pat = ps.pattern(pid)
-            if k > 0:
-                fa = self._final_aligner.align(
-                    self._text_at, pat, end, end,
-                    esb=ps.esb[pid], eeb=ps.eeb[pid])
-                if fa.editdist() <= k:
-                    yield Hit(pid, fa)
-            elif self.wc:
-                text = self._text_at(end - len(pat), len(pat))
-                yield Hit(pid, exact_wc_align(end, pat, text, self.textn))
-            else:
-                yield Hit(pid, exact_align(end, pat))
+        with trace.span("model.hits", self.request):
+            for end, pid, _ in self.engine_hits():
+                pat = ps.pattern(pid)
+                if k > 0:
+                    fa = self._final_aligner.align(
+                        self._text_at, pat, end, end,
+                        esb=ps.esb[pid], eeb=ps.eeb[pid])
+                    if fa.editdist() <= k:
+                        yield Hit(pid, fa)
+                elif self.wc:
+                    text = self._text_at(end - len(pat), len(pat))
+                    yield Hit(pid, exact_wc_align(end, pat, text,
+                                                  self.textn))
+                else:
+                    yield Hit(pid, exact_align(end, pat))
 
 
 def _hid_of(p0: int) -> int:

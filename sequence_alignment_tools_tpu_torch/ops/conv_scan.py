@@ -73,6 +73,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from ..device import LazyDevice, device_type
+from ..utils import trace
 from .tables import GATE_ALPHA
 
 if TYPE_CHECKING:
@@ -92,7 +93,7 @@ def device_form(codes, device: torch.device) -> torch.Tensor:
     entry drops with the host array (weakref finalizer); the copy holds
     no reference to the array, on the CPU too.  A memory-mapped or
     read-only array is copied once on the host first.  ``uploads``
-    counts the copies made.
+    counts the copies made, the ``upload.bytes`` counter their bytes.
 
     The copy lives as long as the host array, not as long as a scanner:
     a streaming caller should not hold on to the block views it has
@@ -107,11 +108,13 @@ def device_form(codes, device: torch.device) -> torch.Tensor:
     ent = _DEV_CACHE.get(key)
     if ent is not None and ent[0]() is codes:
         return ent[1]
-    arr = np.ascontiguousarray(codes, dtype=np.uint8)
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    dev = torch.from_numpy(arr).to(device, copy=arr is codes)
+    with trace.span("scan.upload"):
+        arr = np.ascontiguousarray(codes, dtype=np.uint8)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        dev = torch.from_numpy(arr).to(device, copy=arr is codes)
     device_form.uploads += 1
+    trace.count("upload.bytes", arr.nbytes)
     try:
         ref = weakref.ref(codes)
     except TypeError:  # an object without weak references: not cached
@@ -198,20 +201,8 @@ class ConvScanner:
         # a code >= 0 (as the JAX fused route pads)
         return max(int(self.tables.eos_code), 0)
 
-    def _route(self, msg: str) -> None:
-        """Name the route taken, once per scanner, as a '-v' line
-        (verbose mode or SAT_ROUTE_VERBOSE=1)."""
-        if self.progress is None and not os.environ.get(
-                "SAT_ROUTE_VERBOSE"):
-            return
-        if self._routes_done is None:
-            self._routes_done = set()
-        if msg in self._routes_done:
-            return
-        self._routes_done.add(msg)
-        from ..utils.log import timestamp
-
-        timestamp("Route: " + msg)
+    # the route line, once per scanner (verbose mode or SAT_ROUTE_VERBOSE=1)
+    _route = trace.route
 
     def _sharded_capable(self) -> bool:
         """Whether the scans run per position shard: a mesh of more than
@@ -274,41 +265,49 @@ class ConvScanner:
                          self._eos, cap_mb, hit_cap, self._MB)
 
     def _decode_packed(self, packed, codes_dev, n: int, caps=None):
-        """Decode a fetched packed row, retrying with larger caps on
-        overflow."""
+        """The (end, pid, mism) tuples of a fetched packed row
+        (:meth:`_decode_arrays`)."""
+        ends, pids, mism = self._decode_arrays(packed, codes_dev, n, caps)
+        yield from zip(ends.tolist(), pids.tolist(), mism.tolist())
+
+    def _decode_arrays(self, packed, codes_dev, n: int, caps=None):
+        """(ends, pids, mism) arrays of a fetched packed row, retrying with
+        larger caps on overflow."""
         cap_mb, hit_cap = caps or (self._cap_mb, self._hit_cap)
         mb_count, hit_count = int(packed[0]), int(packed[1])
         if mb_count > cap_mb or hit_count > hit_cap:
-            yield from self._redispatch(codes_dev, n, mb_count, hit_count)
-            return
+            return self._redispatch(codes_dev, n, mb_count, hit_count)
         from .cuda.scan_kernel import long_form
 
-        mb_idx = packed[2 : 2 + cap_mb]
-        hits = packed[2 + cap_mb : 2 + cap_mb + hit_cap]
-        if not long_form(cap_mb, self.tables.P, self._MB):
-            hit_idx = hits & 0x00FFFFFF
-            hit_mism = hits >> 24
-        else:
-            hit_idx = hits
-            hit_mism = packed[2 + cap_mb + hit_cap :]
-        yield from self._emit(hit_count, mb_idx, hit_idx, hit_mism, n)
+        with trace.span("scan.decode"):
+            mb_idx = packed[2 : 2 + cap_mb]
+            hits = packed[2 + cap_mb : 2 + cap_mb + hit_cap]
+            if not long_form(cap_mb, self.tables.P, self._MB):
+                hit_idx = hits & 0x00FFFFFF
+                hit_mism = hits >> 24
+            else:
+                hit_idx = hits
+                hit_mism = packed[2 + cap_mb + hit_cap :]
+            return self._hit_arrays(hit_count, mb_idx, hit_idx, hit_mism, n)
 
     def _redispatch(self, codes_dev, n: int, mb_count: int, hit_count: int):
         """Overflow retry: grow the caps past the observed true counts,
         rescan and decode; caps grow monotonically, so it terminates."""
-        cap_mb = max(self._cap_mb,
-                     1 << int(max(mb_count, 1) - 1).bit_length())
-        hit_cap = max(self._hit_cap,
-                      1 << int(max(hit_count, 1) - 1).bit_length())
-        self._cap_mb, self._hit_cap = cap_mb, hit_cap
-        packed = self._dispatch(codes_dev, n, cap_mb, hit_cap)
-        yield from self._decode_packed(packed.cpu().numpy(), codes_dev, n,
+        with trace.span("scan.redispatch"):
+            cap_mb = max(self._cap_mb,
+                         1 << int(max(mb_count, 1) - 1).bit_length())
+            hit_cap = max(self._hit_cap,
+                          1 << int(max(hit_count, 1) - 1).bit_length())
+            self._cap_mb, self._hit_cap = cap_mb, hit_cap
+            with trace.span("scan.dispatch"):
+                packed = self._dispatch(codes_dev, n, cap_mb, hit_cap)
+            with trace.span("scan.wait"):
+                packed = packed.cpu().numpy()
+            return self._decode_arrays(packed, codes_dev, n,
                                        (cap_mb, hit_cap))
 
-    def _emit(self, hit_count: int, mb_idx, hit_idx, hit_mism, n: int):
-        """Yield (end, pid, mism) tuples from the live result sections."""
-        if hit_count == 0:
-            return
+    def _hit_arrays(self, hit_count: int, mb_idx, hit_idx, hit_mism, n: int):
+        """(ends, pids, mism) arrays of the live result sections."""
         t = self.tables
         P = t.P
         MB = self._MB
@@ -320,19 +319,19 @@ class ConvScanner:
         starts = mb_idx[slot].astype(np.int64) * MB + win
         keep = starts < n
         starts, pid, ms = starts[keep], pid[keep], ms[keep]
-        ends = starts + t.lengths[pid]
-        for e, p, m in zip(ends, pid, ms):
-            yield int(e), int(p), int(m)
+        return starts + t.lengths[pid], pid, ms
 
     def _scan_fused(self, codes):
         n = len(codes)
         if n == 0:
             return
         codes_dev = device_form(codes, self.device)
-        caps = self._presize(n)
-        packed = self._dispatch(codes_dev, n, *caps)
-        yield from self._decode_packed(packed.cpu().numpy(), codes_dev, n,
-                                       caps)
+        with trace.span("scan.dispatch"):
+            caps = self._presize(n)
+            packed = self._dispatch(codes_dev, n, *caps)
+        with trace.span("scan.wait"):
+            packed = packed.cpu().numpy()
+        yield from self._decode_packed(packed, codes_dev, n, caps)
 
     def scan_stream(self, blocks, depth: int | None = None):
         """Pipelined scan over an iterator of flat code arrays.
@@ -366,8 +365,8 @@ class ConvScanner:
             else:
                 dev = device_form(codes, self.device)
                 caps = (self._cap_mb, self._hit_cap)
-                packed = self._dispatch(dev, n, *caps)
-                host, ev = self._to_host(packed)
+                with trace.span("scan.dispatch"):
+                    host, ev = self._to_host(self._dispatch(dev, n, *caps))
                 pending.append((i, host, ev, dev, n, caps))
             if len(pending) >= depth:
                 yield self._drain(pending.popleft())
@@ -391,7 +390,8 @@ class ConvScanner:
         if host is None:
             return i, []
         if ev is not None:
-            ev.synchronize()
+            with trace.span("scan.wait"):
+                ev.synchronize()
         return i, list(self._decode_packed(host.numpy(), dev, n, caps))
 
     # -- the gated route (pigeonhole k > 0 engines) --------------------------
@@ -465,7 +465,8 @@ class ConvScanner:
             self._gt_dev = (gt, {})
         per = self._gt_dev[1]
         if device not in per:
-            per[device] = gt.to(device)
+            with trace.span("scan.tables"):
+                per[device] = gt.to(device)
         return per[device]
 
     def _gate_dev(self, gt):
@@ -495,17 +496,22 @@ class ConvScanner:
                 raise RuntimeError(
                     f"gated scan: {first} seed hits, {count} survivors "
                     f"exceed one row ({self._CAP_MAX}); scan in blocks")
-            if slots:
-                self._slot_cap = max(self._slot_cap, self._pow2(first))
-            self._gsurv_cap = max(self._gsurv_cap, self._pow2(count))
-            caps = self._gated_caps(n, slots)
-            packed = self._gated_dispatch(codes_dev, n, gt, indels, caps,
-                                          slots)
-            return self._gated_decode(packed.cpu().numpy(), codes_dev, n,
-                                      gt, indels, caps, slots)
+            with trace.span("scan.redispatch"):
+                if slots:
+                    self._slot_cap = max(self._slot_cap, self._pow2(first))
+                self._gsurv_cap = max(self._gsurv_cap, self._pow2(count))
+                caps = self._gated_caps(n, slots)
+                with trace.span("scan.dispatch"):
+                    packed = self._gated_dispatch(codes_dev, n, gt, indels,
+                                                  caps, slots)
+                with trace.span("scan.wait"):
+                    packed = packed.cpu().numpy()
+                return self._gated_decode(packed, codes_dev, n, gt, indels,
+                                          caps, slots)
         cap = caps[1]
-        return (packed[2 : 2 + count].astype(np.int64),
-                packed[2 + cap : 2 + cap + count].astype(np.int32))
+        with trace.span("scan.decode"):
+            return (packed[2 : 2 + count].astype(np.int64),
+                    packed[2 + cap : 2 + cap + count].astype(np.int32))
 
     def _gated_gate(self, gate, k: int, slots: bool):
         """The gate's :class:`..gate.GateTables`, checked against the scan
@@ -571,10 +577,10 @@ class ConvScanner:
                 pending.append((i, None, None, None, 0, None))
             else:
                 dev = device_form(codes, self.device)
-                caps = self._gated_caps(n, slots)
-                packed = self._gated_dispatch(dev, n, gt, indels, caps,
-                                              slots)
-                host, ev = self._to_host(packed)
+                with trace.span("scan.dispatch"):
+                    caps = self._gated_caps(n, slots)
+                    host, ev = self._to_host(self._gated_dispatch(
+                        dev, n, gt, indels, caps, slots))
                 pending.append((i, host, ev, dev, n, caps))
             if len(pending) >= depth:
                 yield self._gated_drain(pending.popleft(), gt, indels,
@@ -587,7 +593,8 @@ class ConvScanner:
         if host is None:
             return i, np.zeros(0, np.int64), np.zeros(0, np.int32)
         if ev is not None:
-            ev.synchronize()
+            with trace.span("scan.wait"):
+                ev.synchronize()
         return (i,) + self._gated_decode(host.numpy(), dev, n, gt,
                                          indels, caps, slots)
 
@@ -733,9 +740,10 @@ class ConvScanner:
         if self._mer_dev_c is None:
             from .cuda.slots import MerTables
 
-            self._mer_dev_c = MerTables(
-                self._mer_tables(), self._by_len(), self.tables.lengths,
-                self.tables.alpha).to(self.device)
+            with trace.span("scan.tables"):
+                self._mer_dev_c = MerTables(
+                    self._mer_tables(), self._by_len(), self.tables.lengths,
+                    self.tables.alpha).to(self.device)
         return self._mer_dev_c
 
     def _mer_native(self, codes: np.ndarray, n: int, sort: bool = True,
@@ -881,22 +889,30 @@ class ConvScanner:
 
         dev = device_form(codes, self.device)
         mt = self._mer_dev()
+        again = False
         while True:
-            cap = self._slot_cap_for(n)
-            row = scan_slots(dev, n, mt, cap)
-            count = int(row[0])
+            with trace.span("scan.redispatch" if again else "scan.dispatch"):
+                cap = self._slot_cap_for(n)
+                row = scan_slots(dev, n, mt, cap)
+            with trace.span("scan.wait"):
+                count = int(row[0])
             if not 0 <= count <= self._CAP_MAX:
                 raise RuntimeError(f"census: {count} hits exceed one row "
                                    f"({self._CAP_MAX}); scan in blocks")
             if count <= cap:
                 break
             self._slot_cap = self._pow2(count)
-        starts = row[1 : 1 + count].cpu().numpy().astype(np.int64)
-        pids = row[1 + cap : 1 + cap + count].cpu().numpy().astype(np.int64)
-        if sort:
-            order = np.lexsort((pids, starts))
-            starts, pids = starts[order], pids[order]
-        return starts + self.tables.lengths[pids].astype(np.int64), pids
+            again = True
+        with trace.span("scan.wait"):
+            starts = row[1 : 1 + count].cpu().numpy()
+            pids = row[1 + cap : 1 + cap + count].cpu().numpy()
+        with trace.span("scan.decode"):
+            starts = starts.astype(np.int64)
+            pids = pids.astype(np.int64)
+            if sort:
+                order = np.lexsort((pids, starts))
+                starts, pids = starts[order], pids[order]
+            return starts + self.tables.lengths[pids].astype(np.int64), pids
 
     def _scan_radix_arrays(self, codes, n: int, sort: bool = True,
                            gate=None):
@@ -1002,18 +1018,20 @@ class ConvScanner:
 
             t = self.tables
             subs = []
-            for off in range(0, t.P, self._PBLOCK):
-                sl = slice(off, min(off + self._PBLOCK, t.P))
-                st = PatternTables(
-                    match=t.match[sl], lengths=t.lengths[sl],
-                    pat_codes=t.pat_codes[sl], Lmax=t.Lmax,
-                    alpha=t.alpha, eos_code=t.eos_code,
-                    code_chars=t.code_chars,
-                )
-                sub = ConvScanner(st, k=self.k, poison_eos=self.poison_eos,
-                                  device=self.device)
-                sub.use_host = False
-                subs.append((off, sub))
+            with trace.span("scan.tables"):
+                for off in range(0, t.P, self._PBLOCK):
+                    sl = slice(off, min(off + self._PBLOCK, t.P))
+                    st = PatternTables(
+                        match=t.match[sl], lengths=t.lengths[sl],
+                        pat_codes=t.pat_codes[sl], Lmax=t.Lmax,
+                        alpha=t.alpha, eos_code=t.eos_code,
+                        code_chars=t.code_chars,
+                    )
+                    sub = ConvScanner(st, k=self.k,
+                                      poison_eos=self.poison_eos,
+                                      device=self.device)
+                    sub.use_host = False
+                    subs.append((off, sub))
             self._pblock_subs_c = subs
         return self._pblock_subs_c
 
@@ -1026,18 +1044,24 @@ class ConvScanner:
         n = len(codes)
         pending = []
         for off, sub in self._pblock_subs():
-            caps = sub._presize(n)
-            host, ev = self._to_host(sub._dispatch(codes_dev, n, *caps))
+            with trace.span("scan.dispatch"):
+                caps = sub._presize(n)
+                host, ev = self._to_host(sub._dispatch(codes_dev, n, *caps))
             pending.append((off, sub, host, ev, caps))
         out = []
         for off, sub, host, ev, caps in pending:
             if ev is not None:
-                ev.synchronize()
-            lens = sub.tables.lengths
-            for end, p0, m in sub._decode_packed(host.numpy(), codes_dev, n,
-                                                 caps):
-                out.append((end - int(lens[p0]), off + p0, end, m))
-        out.sort()
+                with trace.span("scan.wait"):
+                    ev.synchronize()
+            ends, pids, mism = sub._decode_arrays(host.numpy(), codes_dev, n,
+                                                  caps)
+            with trace.span("scan.decode"):
+                lens = sub.tables.lengths
+                for end, p0, m in zip(ends.tolist(), pids.tolist(),
+                                      mism.tolist()):
+                    out.append((end - int(lens[p0]), off + p0, end, m))
+        with trace.span("scan.decode"):
+            out.sort()
         for _start, pid, end, m in out:
             yield end, pid, m
 

@@ -29,6 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...utils import trace
+
 # the kernel keeps at most this many 32-bit words of state per thread
 MAX_WORDS = 32
 # every field of a word holds at most this many pattern positions
@@ -107,6 +109,7 @@ class MyersTables:
         return len(self.words_np)
 
     def to(self, device) -> MyersTables:
+        trace.count("upload.bytes", self.eq.nbytes)
         return MyersTables(self.eq.to(device), self.words_np, self.Lmax)
 
 
@@ -243,10 +246,11 @@ def myers_pairs(codes: torch.Tensor, n: int, mt: MyersTables, eos: int,
 
     ``codes`` uint8 [>= n]; ``mt`` a :class:`MyersTables` on the same
     device.  On a CUDA tensor this launches ``csrc/myers.cu`` on the
-    current stream and counts the launch in ``myers_pairs.launches``; on a
-    CPU tensor it is :func:`myers_pairs_ref`.  Nothing here waits for the
-    device."""
+    current stream and counts the launch in ``launch.myers_pairs``; on a
+    CPU tensor it is :func:`myers_pairs_ref`.  Either counts ``n`` in
+    ``scan.positions``.  Nothing here waits for the device."""
     if codes.device.type == "cpu":
+        trace.count("scan.positions", n)
         return myers_pairs_ref(codes, n, mt, eos, k, cap, segc)
     if codes.device.type != "cuda":
         raise ValueError(f"myers_pairs: unsupported device {codes.device}")
@@ -269,8 +273,6 @@ def myers_pairs(codes: torch.Tensor, n: int, mt: MyersTables, eos: int,
             eos, k, segc, halo, out.data_ptr(), cap, stream)
     if rc != 0:
         raise RuntimeError(f"myers_pairs launch failed: cudaError_t {rc}")
-    myers_pairs.launches += 1
+    trace.count("launch.myers_pairs")
+    trace.count("scan.positions", n)
     return out
-
-
-myers_pairs.launches = 0

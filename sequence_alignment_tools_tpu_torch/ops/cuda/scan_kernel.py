@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...utils import trace
 from ..compact import compact_mask
 
 # the filter's microblock: one lane of a CUDA warp scores one microblock
@@ -179,7 +180,9 @@ def _build_filter_tables(w: torch.Tensor, thr: torch.Tensor) -> FilterTables:
     dev = w.device
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+        a = np.ascontiguousarray(a, np.int32)
+        trace.count("upload.bytes", a.nbytes)
+        return torch.from_numpy(a).to(dev)
 
     return FilterTables(bits=put(bits.reshape(-1, 8)),
                         ent=put(ids.reshape(P, J, 2)), pat=put(pat),
@@ -201,7 +204,8 @@ def filter_tables(w: torch.Tensor, thr: torch.Tensor) -> FilterTables:
     hit = _FT_CACHE.get(key)
     if hit is not None and hit[0]() is w and hit[1]() is thr:
         return hit[2]
-    ft = _build_filter_tables(w, thr)
+    with trace.span("scan.tables"):
+        ft = _build_filter_tables(w, thr)
     for k in [k for k, v in _FT_CACHE.items()
               if v[0]() is None or v[1]() is None]:
         del _FT_CACHE[k]
@@ -219,9 +223,11 @@ def scan_occupancy(codes: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
     current stream (``MB`` must be 32, one lane's word) over the
     :func:`filter_tables` of ``w`` and ``thr`` (which raises
     ``ValueError`` for weights not of the port's 0/1 + poison form) and
-    counts the launch in ``scan_occupancy.launches``; on a CPU tensor it
-    is :func:`scan_occupancy_ref`."""
+    counts the launch in ``launch.scan_occupancy``; on a CPU tensor it
+    is :func:`scan_occupancy_ref`.  Either counts ``n`` in
+    ``scan.positions``."""
     if codes.device.type == "cpu":
+        trace.count("scan.positions", n)
         return scan_occupancy_ref(codes, w, thr, n, eos, MB)
     if codes.device.type != "cuda":
         raise ValueError(f"scan_occupancy: unsupported device {codes.device}")
@@ -259,11 +265,9 @@ def scan_occupancy(codes: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
             int(ft.R <= 8 and alpha <= 32), occ.data_ptr(), nmb, stream)
     if rc != 0:
         raise RuntimeError(f"scan_filter launch failed: cudaError_t {rc}")
-    scan_occupancy.launches += 1
+    trace.count("launch.scan_occupancy")
+    trace.count("scan.positions", n)
     return occ
-
-
-scan_occupancy.launches = 0
 
 
 def long_form(cap_mb: int, P: int, MB: int = MB) -> bool:

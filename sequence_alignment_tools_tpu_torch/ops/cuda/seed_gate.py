@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import trace
 from ..compact import compact_mask
 from ..gate import gate_ok_ref
 from .scan_kernel import MB, filter_tables, scan_occupancy
@@ -129,7 +130,7 @@ def seed_gate(codes: torch.Tensor, n: int, dt, mb_count: torch.Tensor,
     on the current stream over the :func:`.scan_kernel.filter_tables` of
     the seed weights (which raises ``ValueError`` for weights not of the
     port's 0/1 + poison form) and counts the launch in
-    ``seed_gate.launches``; on a CPU tensor it is :func:`seed_gate_ref`."""
+    ``launch.seed_gate``; on a CPU tensor it is :func:`seed_gate_ref`."""
     if codes.device.type == "cpu":
         return seed_gate_ref(codes, n, dt, mb_count, mb_idx, gt, eos,
                              indels, cap)
@@ -157,11 +158,8 @@ def seed_gate(codes: torch.Tensor, n: int, dt, mb_count: torch.Tensor,
             int(indels), out.data_ptr(), cap, stream)
     if rc != 0:
         raise RuntimeError(f"seed_gate launch failed: cudaError_t {rc}")
-    seed_gate.launches += 1
+    trace.count("launch.seed_gate")
     return out
-
-
-seed_gate.launches = 0
 
 
 def gated_hits(codes: torch.Tensor, n: int, dt, gt, eos: int, indels: bool,

@@ -33,6 +33,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...utils import trace
+
 # the kernel's counters without indels hold k + 1 in at most 16 bit planes
 MAX_K = 65534
 # the most patterns one launch takes (a grid row per pattern, gridDim.y);
@@ -79,6 +81,8 @@ class SellersTables:
         return self.acc.shape[2]
 
     def to(self, device) -> SellersTables:
+        trace.count("upload.bytes", self.acc.nbytes + self.lens.nbytes
+                    + self.peq.nbytes)
         return SellersTables(self.acc.to(device), self.lens.to(device),
                              self.alpha, self.peq.to(device))
 
@@ -251,12 +255,15 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
     launch into one row and with one device scratch buffer for the words
     past each pattern's first (sized for a block, at most
     ``_SCRATCH_MAX`` bytes when the segments can grow), and counts each
-    launch in ``sellers_scan.launches``; on a CPU tensor it is
-    :func:`sellers_ref` per block, the rows merged.  Nothing here waits
-    for the device."""
+    launch in ``launch.sellers_scan``; on a CPU tensor it is
+    :func:`sellers_ref` per block, the rows merged.  Either counts ``n``
+    in ``scan.positions`` per block.  Nothing here waits for the
+    device."""
     if codes.device.type == "cpu":
+        blocks = st.blocks()
+        trace.count("scan.positions", n * len(blocks))
         return _merged([(lo, sellers_ref(codes, n, b, eos, k, indels, cap))
-                        for lo, b in st.blocks()], cap)
+                        for lo, b in blocks], cap)
     if codes.device.type != "cuda":
         raise ValueError(f"sellers_scan: unsupported device {codes.device}")
     if codes.dtype != torch.uint8 or codes.dim() != 1 \
@@ -298,8 +305,6 @@ def sellers_scan(codes: torch.Tensor, n: int, st: SellersTables, eos: int,
             if rc != 0:
                 raise RuntimeError(
                     f"sellers_scan launch failed: cudaError_t {rc}")
-            sellers_scan.launches += 1
+            trace.count("launch.sellers_scan")
+            trace.count("scan.positions", n)
     return out
-
-
-sellers_scan.launches = 0

@@ -29,6 +29,7 @@ import weakref
 import numpy as np
 import torch
 
+from ...utils import trace
 from ..gate import gate_ok_ref
 from .seed_gate import MAX_BAND
 
@@ -133,10 +134,13 @@ class MerTables:
         """A copy whose tensors lie on ``device``."""
         out = object.__new__(MerTables)
         out.__dict__.update(self.__dict__)
-        for name in ("cls", "keys", "head", "enext", "epid", "lengths",
-                     "filt"):
+        names = ("cls", "keys", "head", "enext", "epid", "lengths", "filt")
+        for name in names:
             setattr(out, name, getattr(self, name).to(device))
         out.plain = [tuple(t.to(device) for t in c) for c in self.plain]
+        trace.count("upload.bytes", sum(
+            [getattr(self, name).nbytes for name in names]
+            + [t.nbytes for c in self.plain for t in c]))
         return out
 
 
@@ -214,9 +218,11 @@ def scan_slots(codes: torch.Tensor, n: int, mt: MerTables,
 
     ``codes`` uint8 [>= n]; ``mt`` a :class:`MerTables` on the same
     device.  On a CUDA tensor this launches ``csrc/seed_slots.cu`` on the
-    current stream and counts the launch in ``scan_slots.launches``; on a
-    CPU tensor it is :func:`scan_slots_ref`."""
+    current stream and counts the launch in ``launch.scan_slots``; on a
+    CPU tensor it is :func:`scan_slots_ref`.  Either counts ``n`` in
+    ``scan.positions``."""
     if codes.device.type == "cpu":
+        trace.count("scan.positions", n)
         return scan_slots_ref(codes, n, mt, cap)
     if codes.device.type != "cuda":
         raise ValueError(f"scan_slots: unsupported device {codes.device}")
@@ -241,11 +247,9 @@ def scan_slots(codes: torch.Tensor, n: int, mt: MerTables,
             mt.fbits, out.data_ptr(), cap, stream)
     if rc != 0:
         raise RuntimeError(f"seed_slots launch failed: cudaError_t {rc}")
-    scan_slots.launches += 1
+    trace.count("launch.scan_slots")
+    trace.count("scan.positions", n)
     return out
-
-
-scan_slots.launches = 0
 
 
 def gate_slots_ref(codes: torch.Tensor, n: int, slots: torch.Tensor,
@@ -308,7 +312,7 @@ def gate_slots(codes: torch.Tensor, n: int, slots: torch.Tensor,
     tensor this launches ``csrc/gate_slots.cu`` on the current stream
     (its instance for the band, ``gt.band`` with indels and 0 without,
     over :func:`seed_records`) and counts the launch in
-    ``gate_slots.launches``; on a CPU tensor it is
+    ``launch.gate_slots``; on a CPU tensor it is
     :func:`gate_slots_ref`."""
     if codes.device.type == "cpu":
         return gate_slots_ref(codes, n, slots, lengths, gt, indels, cap)
@@ -344,11 +348,8 @@ def gate_slots(codes: torch.Tensor, n: int, slots: torch.Tensor,
             out.data_ptr(), cap, stream)
     if rc != 0:
         raise RuntimeError(f"gate_slots launch failed: cudaError_t {rc}")
-    gate_slots.launches += 1
+    trace.count("launch.gate_slots")
     return out
-
-
-gate_slots.launches = 0
 
 
 def slot_gated_hits(codes: torch.Tensor, n: int, mt: MerTables, gt,

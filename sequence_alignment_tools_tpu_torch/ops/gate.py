@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .tables import GATE_ALPHA
 
 
@@ -72,6 +73,8 @@ class GateTables:
         out.bits = self.bits.to(device)
         out.glen = self.glen.to(device)
         out.gdir = self.gdir.to(device)
+        trace.count("upload.bytes", self.bits.nbytes + self.glen.nbytes
+                    + self.gdir.nbytes)
         return out
 
     @classmethod

@@ -45,6 +45,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from ..device import LazyDevice
+from ..utils import trace
 from .conv_scan import ConvScanner, device_form
 
 if TYPE_CHECKING:
@@ -84,20 +85,8 @@ class SellersScanner:
         self._sel_c = None
         self._sel_more = None
 
-    def _route(self, msg: str) -> None:
-        """Name the route taken, once per scanner, as a '-v' line
-        (verbose mode or SAT_ROUTE_VERBOSE=1)."""
-        if self.progress is None and not os.environ.get(
-                "SAT_ROUTE_VERBOSE"):
-            return
-        if self._routes_done is None:
-            self._routes_done = set()
-        if msg in self._routes_done:
-            return
-        self._routes_done.add(msg)
-        from ..utils.log import timestamp
-
-        timestamp("Route: " + msg)
+    # the route line, once per scanner (verbose mode or SAT_ROUTE_VERBOSE=1)
+    _route = trace.route
 
     # -- native host k-edit machine (one-shot latency path) ------------------
 
@@ -128,14 +117,16 @@ class SellersScanner:
         if self._my_c is None:
             from .cuda.myers import myers_tables
 
-            self._my_c = myers_tables(self.tables).to(self.device)
+            with trace.span("scan.tables"):
+                self._my_c = myers_tables(self.tables).to(self.device)
         return self._my_c
 
     def _sellers_t(self):
         if self._sel_c is None:
             from .cuda.sellers import sellers_tables
 
-            self._sel_c = sellers_tables(self.tables).to(self.device)
+            with trace.span("scan.tables"):
+                self._sel_c = sellers_tables(self.tables).to(self.device)
         return self._sel_c
 
     def _sellers_on(self, device: torch.device):
@@ -147,7 +138,8 @@ class SellersScanner:
         if self._sel_more is None:
             self._sel_more = {}
         if device not in self._sel_more:
-            self._sel_more[device] = st.to(device)
+            with trace.span("scan.tables"):
+                self._sel_more[device] = st.to(device)
         return self._sel_more[device]
 
     def myers_available(self, n: int) -> bool:
@@ -223,17 +215,22 @@ class SellersScanner:
         overflow."""
         count = int(row[0])
         if count > cap:
-            cap = 1 << (count - 1).bit_length()
-            if kind == "myers":
-                self._my_cap = max(self._my_cap, cap)
-            else:
-                self._sel_cap = max(self._sel_cap, cap)
-            row = self._dispatch(kind, codes_dev, n, cap).cpu().numpy()
-        pos = row[1 : 1 + count].astype(np.int64)
-        pids = row[1 + cap : 1 + cap + count].astype(np.int64)
-        dist = (row[1 + 2 * cap : 1 + 2 * cap + count].astype(np.int64)
-                if kind == "sellers" else None)
-        return pos, pids, dist
+            with trace.span("scan.redispatch"):
+                cap = 1 << (count - 1).bit_length()
+                if kind == "myers":
+                    self._my_cap = max(self._my_cap, cap)
+                else:
+                    self._sel_cap = max(self._sel_cap, cap)
+                with trace.span("scan.dispatch"):
+                    row = self._dispatch(kind, codes_dev, n, cap)
+                with trace.span("scan.wait"):
+                    row = row.cpu().numpy()
+        with trace.span("scan.decode"):
+            pos = row[1 : 1 + count].astype(np.int64)
+            pids = row[1 + cap : 1 + cap + count].astype(np.int64)
+            dist = (row[1 + 2 * cap : 1 + 2 * cap + count].astype(np.int64)
+                    if kind == "sellers" else None)
+            return pos, pids, dist
 
     def _run(self, codes, kind: str):
         n = len(codes)
@@ -241,8 +238,11 @@ class SellersScanner:
             z = np.zeros(0, np.int64)
             return z, z, z
         codes_dev = device_form(codes, self.device)
-        cap = self._cap(kind, n)
-        row = self._dispatch(kind, codes_dev, n, cap).cpu().numpy()
+        with trace.span("scan.dispatch"):
+            cap = self._cap(kind, n)
+            row = self._dispatch(kind, codes_dev, n, cap)
+        with trace.span("scan.wait"):
+            row = row.cpu().numpy()
         return self._decode(kind, row, codes_dev, n, cap)
 
     def scan_pairs(self, codes: np.ndarray):
@@ -269,9 +269,10 @@ class SellersScanner:
             else:
                 kind = self._kind(n)
                 dev = device_form(codes, self.device)
-                cap = self._cap(kind, n)
-                host, ev = ConvScanner._to_host(
-                    self._dispatch(kind, dev, n, cap))
+                with trace.span("scan.dispatch"):
+                    cap = self._cap(kind, n)
+                    host, ev = ConvScanner._to_host(
+                        self._dispatch(kind, dev, n, cap))
                 pending.append((i, kind, host, ev, dev, n, cap))
             if len(pending) >= depth:
                 yield self._drain(pending.popleft())
@@ -284,7 +285,8 @@ class SellersScanner:
             z = np.zeros(0, np.int64)
             return i, z, z
         if ev is not None:
-            ev.synchronize()
+            with trace.span("scan.wait"):
+                ev.synchronize()
         pos, pids, _ = self._decode(kind, host.numpy(), dev, n, cap)
         return i, pos + 1, pids
 
@@ -320,7 +322,8 @@ class SellersScanner:
                         "the CPU)")
             pos, pids, dist = self._run(codes, "sellers")
             ends = pos + 1
-        order = np.lexsort((pids, ends))
+        with trace.span("scan.decode"):
+            order = np.lexsort((pids, ends))
         for i in order:
             yield int(ends[i]), int(pids[i]), int(dist[i])
         if self.progress:

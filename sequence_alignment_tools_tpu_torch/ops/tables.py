@@ -18,6 +18,7 @@ import numpy as np
 
 from ..io.database import SeqDB
 from ..io.patterns import PatternSet
+from ..utils import trace
 from ..utils.iupac import COMPATIBLE
 
 if TYPE_CHECKING:
@@ -111,15 +112,15 @@ def conv_weights_f32(tables, k: int, poison_eos: bool) -> np.ndarray:
 
 
 def device_tables(tables, k: int, poison_eos: bool, device) -> DeviceTables:
-    """The numpy ``PatternTables`` as the port's device tensors."""
+    """The numpy ``PatternTables`` as the port's device tensors (their
+    bytes counted in ``upload.bytes``)."""
     import torch
 
-    w = conv_weights_f32(tables, k, poison_eos)
-    lengths = np.asarray(tables.lengths, np.int32)
-    device = torch.device(device)
-    return DeviceTables(
-        weights=torch.from_numpy(w).to(device),
-        weights16=torch.from_numpy(w.astype(np.int16)).to(device),
-        thresholds=torch.from_numpy(lengths - np.int32(k)).to(device),
-        lengths=torch.from_numpy(lengths.copy()).to(device),
-    )
+    with trace.span("scan.tables"):
+        w = conv_weights_f32(tables, k, poison_eos)
+        lengths = np.asarray(tables.lengths, np.int32)
+        host = (w, w.astype(np.int16), lengths - np.int32(k), lengths.copy())
+        device = torch.device(device)
+        dt = DeviceTables(*(torch.from_numpy(a).to(device) for a in host))
+    trace.count("upload.bytes", sum(a.nbytes for a in host))
+    return dt

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.conv_scan import device_form
+from ..utils import trace
 from .devcache import devcount_cache_path, read_devcount
 
 
@@ -184,7 +185,8 @@ def shard_codes(codes: np.ndarray, mesh: Mesh, halo: int, eos_code: int,
     outside ``[0, n)``.  With ``left = 0`` this is the JAX layout (a right
     halo, materialized by overlapping slices).  Each row is filled on its
     device and its text copied there straight from the host array, one
-    upload a row, counted in ``device_form.uploads``."""
+    upload a row, counted in ``device_form.uploads`` (its bytes in the
+    ``upload.bytes`` counter)."""
     codes = np.asarray(codes)
     n = len(codes)
     shard = -(-n // mesh.size)
@@ -199,6 +201,7 @@ def shard_codes(codes: np.ndarray, mesh: Mesh, halo: int, eos_code: int,
             if not part.flags.writeable:  # a read-only or mapped array
                 part = part.copy()
             row[a - lo : b - lo].copy_(torch.from_numpy(part))
+            trace.count("upload.bytes", part.nbytes)
         rows.append(row)
         device_form.uploads += 1
     return rows, shard

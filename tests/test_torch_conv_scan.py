@@ -19,6 +19,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
     scan_occupancy,
 )
 from sequence_alignment_tools_tpu_torch.parallel.shard import make_mesh
+from sequence_alignment_tools_tpu_torch.utils import trace
 from tests.test_torch_scan_kernel import PATS, planted_db
 
 
@@ -59,10 +60,10 @@ def test_fused_scan_matches_xla_path(db, k, monkeypatch):
     want = _want(tables, k, db.codes)
     assert len(want) >= (1 + (k > 0)) * len(PATS) + 1
     calls = _record_fused(monkeypatch)
-    before = scan_occupancy.launches
+    before = trace.total("launch.scan_occupancy")
     assert list(_fused(tables, k).scan(db.codes)) == want
     assert calls == [len(db.codes)]  # one fused scan of the whole array
-    assert scan_occupancy.launches == before  # CPU tensors: plain version
+    assert trace.total("launch.scan_occupancy") == before  # CPU tensors: plain version
 
 
 @pytest.mark.parametrize("k", [0, 2])

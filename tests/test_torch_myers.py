@@ -37,6 +37,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.myers import (
     myers_tables,
 )
 from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
+from sequence_alignment_tools_tpu_torch.utils import trace
 
 TABLE = b"ACGT\n"
 EOS = 4
@@ -161,11 +162,11 @@ def test_cuda_kernel_matches_plain(k):
     mt = myers_tables(pt).to("cuda")
     dev = torch.from_numpy(codes).cuda()
     for nn in (n, n - 777):
-        before = myers_pairs.launches
+        before = trace.total("launch.myers_pairs")
         got = myers_pairs(dev, nn, mt, EOS, k, CAP)
         want = myers_pairs_ref(dev, nn, mt, EOS, k, CAP)
         torch.cuda.synchronize()
-        assert myers_pairs.launches == before + 1
+        assert trace.total("launch.myers_pairs") == before + 1
         assert int(got[0]) == int(want[0]) > 0
         assert pairs(got) == pairs(want)
 

@@ -29,6 +29,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
     scan_occupancy_ref,
 )
 from sequence_alignment_tools_tpu_torch.ops.tables import device_tables
+from sequence_alignment_tools_tpu_torch.utils import trace
 from test_torch_filter import CASES as FILTER_CASES
 from test_torch_filter import case_inputs as filter_case
 
@@ -116,10 +117,10 @@ def test_occupancy_is_the_hit_microblocks(db, k):
     want = sorted({(e - int(tables.lengths[p])) // MB for e, p, _ in hits})
     assert np.flatnonzero(occ.numpy()).tolist() == want
     # on a CPU tensor the wrapper is the plain version, and no launch
-    before = scan_occupancy.launches
+    before = trace.total("launch.scan_occupancy")
     assert torch.equal(
         scan_occupancy(codes, dt.weights16, dt.thresholds, n, EOS), occ)
-    assert scan_occupancy.launches == before
+    assert trace.total("launch.scan_occupancy") == before
 
 
 @pytest.mark.parametrize("k", [0, 1, 2])
@@ -193,11 +194,11 @@ def test_cuda_kernel_matches_plain(db, k):
     dt = device_tables(tables, k, k > 0, "cuda")
     codes = torch.from_numpy(db.codes).cuda()
     for n in (len(db.codes), len(db.codes) - 1000):
-        before = scan_occupancy.launches
+        before = trace.total("launch.scan_occupancy")
         got = scan_occupancy(codes, dt.weights16, dt.thresholds, n, EOS)
         want = scan_occupancy_ref(codes, dt.weights16, dt.thresholds, n, EOS)
         torch.cuda.synchronize()
-        assert scan_occupancy.launches == before + 1
+        assert trace.total("launch.scan_occupancy") == before + 1
         assert torch.equal(got, want)
 
 
@@ -211,11 +212,11 @@ def test_cuda_filter_cases_match_plain(name):
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     codes, n, eos, w, thr = filter_case(name)
     codes, w, thr = codes.cuda(), w.cuda(), thr.cuda()
-    before = scan_occupancy.launches
+    before = trace.total("launch.scan_occupancy")
     got = scan_occupancy(codes, w, thr, n, eos)
     want = scan_occupancy_ref(codes, w, thr, n, eos)
     torch.cuda.synchronize()
-    assert scan_occupancy.launches == before + 1
+    assert trace.total("launch.scan_occupancy") == before + 1
     assert torch.equal(got, want)
 
 

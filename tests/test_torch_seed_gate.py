@@ -37,6 +37,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.seed_gate import (
 )
 from sequence_alignment_tools_tpu_torch.ops.gate import GateTables
 from sequence_alignment_tools_tpu_torch.ops.tables import device_tables
+from sequence_alignment_tools_tpu_torch.utils import trace
 from test_torch_gate import mutate
 
 TABLE = b"ACGT\n"
@@ -151,10 +152,10 @@ def test_seed_gate_matches_brute_force(block, k, indels):
     assert int(row[0]) == len(want)
     assert survivors(row, cap) == want
     # on a CPU tensor the wrapper is the plain version, and no launch
-    before = seed_gate.launches
+    before = trace.total("launch.seed_gate")
     assert torch.equal(seed_gate(codes, n, dt, mb_count, mb_idx, gt, EOS,
                                  indels, cap), row)
-    assert seed_gate.launches == before
+    assert trace.total("launch.seed_gate") == before
     # the pipeline: the filter's candidate microblocks lose no survivor
     packed = gated_hits(codes, n, dt, gt, EOS, indels, 1024, cap)
     occ = scan_occupancy(codes, dt.weights16, dt.thresholds, n, EOS)
@@ -256,12 +257,12 @@ def test_cuda_kernel_matches_plain(block, k, indels):
     for n in (len(db.codes), len(db.codes) - 1000):
         occ = scan_occupancy(codes, dt.weights16, dt.thresholds, n, EOS)
         mb_count, mb_idx = compact_mask(occ, 1024)
-        before = seed_gate.launches
+        before = trace.total("launch.seed_gate")
         got = seed_gate(codes, n, dt, mb_count, mb_idx, gt, EOS, indels, 4096)
         want = seed_gate_ref(codes, n, dt, mb_count, mb_idx, gt, EOS, indels,
                              4096)
         torch.cuda.synchronize()
-        assert seed_gate.launches == before + 1
+        assert trace.total("launch.seed_gate") == before + 1
         assert int(got[0]) == int(want[0]) > 0
         assert survivors(got.cpu(), 4096) == survivors(want.cpu(), 4096)
 

@@ -36,6 +36,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
     sellers_tables,
 )
 from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
+from sequence_alignment_tools_tpu_torch.utils import trace
 
 TABLE = b"ACGT\n"
 EOS = 4
@@ -174,11 +175,11 @@ def test_cuda_kernel_matches_plain(k, indels):
     st = sellers_tables(pt).to("cuda")
     dev = torch.from_numpy(codes).cuda()
     for nn in (n, n - 777):
-        before = sellers_scan.launches
+        before = trace.total("launch.sellers_scan")
         got = sellers_scan(dev, nn, st, EOS, k, indels, CAP)
         want = sellers_ref(dev, nn, st, EOS, k, indels, CAP)
         torch.cuda.synchronize()
-        assert sellers_scan.launches == before + 1
+        assert trace.total("launch.sellers_scan") == before + 1
         assert int(got[0]) == int(want[0]) > 0
         assert triples(got) == triples(want)
 

@@ -30,6 +30,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.sellers import (
     sellers_tables,
 )
 from sequence_alignment_tools_tpu_torch.ops.sellers import SellersScanner
+from sequence_alignment_tools_tpu_torch.utils import trace
 from test_torch_sellers import EOS, both_tables, text_db, triples
 
 
@@ -184,11 +185,11 @@ def test_cuda_70000_patterns():
     st = sellers_tables(tables).to("cuda")
     dev = torch.from_numpy(codes).cuda()
     cap = 1 << 20
-    before = sellers_scan.launches
+    before = trace.total("launch.sellers_scan")
     got = sellers_scan(dev, len(codes), st, EOS, 2, True, cap)
     want = sellers_ref(dev, len(codes), st, EOS, 2, True, cap)
     torch.cuda.synchronize()
-    assert sellers_scan.launches == before + 2
+    assert trace.total("launch.sellers_scan") == before + 2
     assert int(got[0]) == int(want[0]) > 0
     assert triples(got, cap) == triples(want, cap) == native_rows(
         tables, 2, codes)

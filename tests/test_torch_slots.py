@@ -47,6 +47,7 @@ from sequence_alignment_tools_tpu_torch.ops.cuda.slots import (
     slot_gated_hits,
 )
 from sequence_alignment_tools_tpu_torch.ops.gate import GateTables
+from sequence_alignment_tools_tpu_torch.utils import trace
 from test_slots_kernel import _decode, _mk
 from test_torch_gate import DIRS, PATS, mutate, seed_meta
 from test_torch_seed_gate import seed_tables
@@ -312,7 +313,7 @@ def test_cuda_kernels_match_plain(slot_db, k, indels):
     codes = torch.from_numpy(slot_db.codes).cuda()
     for n in (len(slot_db.codes), len(slot_db.codes) - 1000):
         for cap in (4096, 3):
-            before = scan_slots.launches, gate_slots.launches
+            before = trace.total("launch.scan_slots"), trace.total("launch.gate_slots")
             got = scan_slots(codes, n, mt, cap)
             want = scan_slots_ref(codes, n, mt, 4096)
             full = scan_slots(codes, n, mt, 4096)
@@ -320,7 +321,7 @@ def test_cuda_kernels_match_plain(slot_db, k, indels):
             gwant = gate_slots_ref(codes, n, full, mt.lengths, gt, indels,
                                    4096)
             torch.cuda.synchronize()
-            assert (scan_slots.launches, gate_slots.launches) == (
+            assert (trace.total("launch.scan_slots"), trace.total("launch.gate_slots")) == (
                 before[0] + 2, before[1] + 1)
             assert int(got[0]) == int(want[0]) > 0
             assert int(ggot[0]) == int(gwant[0]) > 0
