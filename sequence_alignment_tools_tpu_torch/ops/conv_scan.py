@@ -37,7 +37,8 @@ with ``W`` the conv weights (EOS poison under ``poison_eos``).
 6. the fused device route for every other scan, at any length, pattern
    length and alphabet: :func:`.cuda.scan_kernel.scan_hits` (CUDA filter
    kernel, compaction, exact rescore) in one packed row per scan, with
-   cap pre-sizing and an overflow retry.
+   cap pre-sizing and an overflow retry that re-runs the rescore alone
+   over the scan's kept filter occupancy.
 
 The JAX scanner's other device routes (the XLA block path, the bit-plane
 and seam modes for wide alphabets) are layouts for the TPU; the CUDA
@@ -127,12 +128,21 @@ def device_form(codes, device: torch.device) -> torch.Tensor:
 device_form.uploads = 0
 
 
-def scan_hits(*args):
-    """:func:`.cuda.scan_kernel.scan_hits`, the fused route's kernel and
-    glue, imported at the first call (this module imports no torch)."""
-    from .cuda.scan_kernel import scan_hits as fused
+def scan_occupancy(*args):
+    """:func:`.cuda.scan_kernel.scan_occupancy`, the fused route's filter
+    (one call per fused scan), imported at the first call (this module
+    imports no torch)."""
+    from .cuda.scan_kernel import scan_occupancy as occupancy
 
-    return fused(*args)
+    return occupancy(*args)
+
+
+def rescore_hits(*args):
+    """:func:`.cuda.scan_kernel.rescore_hits`, the fused route's stages
+    after the filter, imported at the first call."""
+    from .cuda.scan_kernel import rescore_hits as rescore
+
+    return rescore(*args)
 
 
 class ConvScanner:
@@ -145,7 +155,7 @@ class ConvScanner:
     _MB = 32
     _PBLOCK = 2048  # largest pattern set one fused scan takes
     # candidate-buffer floors; _expected_hits raises them up front and
-    # overflow retries grow them stickily
+    # overflow retries grow them stickily (_retry_row)
     _cap_mb = 128
     _hit_cap = 512
     # streaming memory model: arrays past the residency bound scan as
@@ -260,23 +270,36 @@ class ConvScanner:
 
     # -- the fused device route ---------------------------------------------
 
-    def _dispatch(self, codes_dev, n: int, cap_mb: int, hit_cap: int):
-        return scan_hits(codes_dev, n, self._tables_on(codes_dev.device),
-                         self._eos, cap_mb, hit_cap, self._MB)
+    def _filter(self, codes_dev, n: int):
+        """The fused scan's microblock occupancy (the filter kernel)."""
+        dt = self._tables_on(codes_dev.device)
+        return scan_occupancy(codes_dev, dt.weights16, dt.thresholds, n,
+                              self._eos, self._MB)
 
-    def _decode_packed(self, packed, codes_dev, n: int, caps=None):
+    def _rescore(self, occ, codes_dev, n: int, cap_mb: int, hit_cap: int):
+        """The packed row of the fused scan over the occupancy ``occ``."""
+        return rescore_hits(occ, codes_dev, n,
+                            self._tables_on(codes_dev.device), self._eos,
+                            cap_mb, hit_cap, self._MB)
+
+    def _decode_packed(self, packed, codes_dev, n: int, caps, occ):
         """The (end, pid, mism) tuples of a fetched packed row
         (:meth:`_decode_arrays`)."""
-        ends, pids, mism = self._decode_arrays(packed, codes_dev, n, caps)
+        ends, pids, mism = self._decode_arrays(packed, codes_dev, n, caps,
+                                               occ)
         yield from zip(ends.tolist(), pids.tolist(), mism.tolist())
 
-    def _decode_arrays(self, packed, codes_dev, n: int, caps=None):
-        """(ends, pids, mism) arrays of a fetched packed row, retrying with
-        larger caps on overflow."""
-        cap_mb, hit_cap = caps or (self._cap_mb, self._hit_cap)
-        mb_count, hit_count = int(packed[0]), int(packed[1])
-        if mb_count > cap_mb or hit_count > hit_cap:
-            return self._redispatch(codes_dev, n, mb_count, hit_count)
+    @staticmethod
+    def _overflowed(packed, caps) -> bool:
+        return int(packed[0]) > caps[0] or int(packed[1]) > caps[1]
+
+    def _decode_arrays(self, packed, codes_dev, n: int, caps, occ):
+        """(ends, pids, mism) arrays of a fetched packed row at ``caps``,
+        retrying over ``occ``, the row's kept occupancy, on overflow."""
+        if self._overflowed(packed, caps):
+            return self._redispatch(codes_dev, n, packed, occ)
+        cap_mb, hit_cap = caps
+        hit_count = int(packed[1])
         from .cuda.scan_kernel import long_form
 
         with trace.span("scan.decode"):
@@ -290,21 +313,31 @@ class ConvScanner:
                 hit_mism = packed[2 + cap_mb + hit_cap :]
             return self._hit_arrays(hit_count, mb_idx, hit_idx, hit_mism, n)
 
-    def _redispatch(self, codes_dev, n: int, mb_count: int, hit_count: int):
-        """Overflow retry: grow the caps past the observed true counts,
-        rescan and decode; caps grow monotonically, so it terminates."""
+    def _retry_row(self, codes_dev, n: int, packed, occ):
+        """(host, ev, caps) of an overflowed row's retry, queued without a
+        wait (:meth:`_to_host`): the caps grow stickily past the row's
+        counts, and the rescore alone runs again over its kept occupancy
+        ``occ`` (counted in ``scan.rescore_retry``).  ``mb_count`` is
+        exact at any cap; ``hit_count`` counts only the kept microblocks,
+        but each candidate microblock holds a hit, so the hits are at
+        least ``mb_count`` too."""
+        mb_count, hit_count = int(packed[0]), int(packed[1])
+        self._cap_mb = max(self._cap_mb, self._pow2(mb_count))
+        self._hit_cap = max(self._hit_cap,
+                            self._pow2(max(hit_count, mb_count)))
+        caps = (self._cap_mb, self._hit_cap)
+        trace.count("scan.rescore_retry")
+        with trace.span("scan.dispatch"):
+            host, ev = self._to_host(self._rescore(occ, codes_dev, n, *caps))
+        return host, ev, caps
+
+    def _redispatch(self, codes_dev, n: int, packed, occ):
+        """Overflow retry (:meth:`_retry_row`), fetched and decoded; caps
+        grow monotonically, so it terminates."""
         with trace.span("scan.redispatch"):
-            cap_mb = max(self._cap_mb,
-                         1 << int(max(mb_count, 1) - 1).bit_length())
-            hit_cap = max(self._hit_cap,
-                          1 << int(max(hit_count, 1) - 1).bit_length())
-            self._cap_mb, self._hit_cap = cap_mb, hit_cap
-            with trace.span("scan.dispatch"):
-                packed = self._dispatch(codes_dev, n, cap_mb, hit_cap)
-            with trace.span("scan.wait"):
-                packed = packed.cpu().numpy()
-            return self._decode_arrays(packed, codes_dev, n,
-                                       (cap_mb, hit_cap))
+            host, ev, caps = self._retry_row(codes_dev, n, packed, occ)
+            return self._decode_arrays(self._fetch(host, ev), codes_dev, n,
+                                       caps, occ)
 
     def _hit_arrays(self, hit_count: int, mb_idx, hit_idx, hit_mism, n: int):
         """(ends, pids, mism) arrays of the live result sections."""
@@ -328,10 +361,14 @@ class ConvScanner:
         codes_dev = device_form(codes, self.device)
         with trace.span("scan.dispatch"):
             caps = self._presize(n)
-            packed = self._dispatch(codes_dev, n, *caps)
+            occ = self._filter(codes_dev, n)
+            packed = self._rescore(occ, codes_dev, n, *caps)
         with trace.span("scan.wait"):
             packed = packed.cpu().numpy()
-        yield from self._decode_packed(packed, codes_dev, n, caps)
+        ends, pids, mism = self._decode_arrays(packed, codes_dev, n, caps,
+                                               occ)
+        del occ
+        yield from zip(ends.tolist(), pids.tolist(), mism.tolist())
 
     def scan_stream(self, blocks, depth: int | None = None):
         """Pipelined scan over an iterator of flat code arrays.
@@ -340,7 +377,9 @@ class ConvScanner:
         is read: each block's packed row is copied to pinned host memory
         without blocking and an event marks its completion, so the host
         decodes block i while the device scans the blocks behind it.
-        Yields (block_index, hits_list) in order."""
+        Each queued block keeps its occupancy (n / 32 bytes) until its
+        row decodes, for an overflow retry.  Yields (block_index,
+        hits_list) in order."""
         if depth is None:
             depth = self._STREAM_DEPTH
         depth = max(int(depth), 1)
@@ -361,13 +400,15 @@ class ConvScanner:
         for i, codes in enumerate(blocks):
             n = len(codes)
             if n == 0:
-                pending.append((i, None, None, None, 0, None))
+                pending.append((i, None, None, None, 0, None, None))
             else:
                 dev = device_form(codes, self.device)
                 caps = (self._cap_mb, self._hit_cap)
                 with trace.span("scan.dispatch"):
-                    host, ev = self._to_host(self._dispatch(dev, n, *caps))
-                pending.append((i, host, ev, dev, n, caps))
+                    occ = self._filter(dev, n)
+                    host, ev = self._to_host(
+                        self._rescore(occ, dev, n, *caps))
+                pending.append((i, host, ev, dev, n, caps, occ))
             if len(pending) >= depth:
                 yield self._drain(pending.popleft())
         while pending:
@@ -385,14 +426,20 @@ class ConvScanner:
         ev.record(torch.cuda.current_stream(packed.device))
         return host, ev
 
-    def _drain(self, item):
-        i, host, ev, dev, n, caps = item
-        if host is None:
-            return i, []
+    @staticmethod
+    def _fetch(host, ev):
+        """The row of a :meth:`_to_host` pair, once its copy has landed."""
         if ev is not None:
             with trace.span("scan.wait"):
                 ev.synchronize()
-        return i, list(self._decode_packed(host.numpy(), dev, n, caps))
+        return host.numpy()
+
+    def _drain(self, item):
+        i, host, ev, dev, n, caps, occ = item
+        if host is None:
+            return i, []
+        return i, list(self._decode_packed(self._fetch(host, ev), dev, n,
+                                           caps, occ))
 
     # -- the gated route (pigeonhole k > 0 engines) --------------------------
 
@@ -1036,25 +1083,12 @@ class ConvScanner:
         return self._pblock_subs_c
 
     def _scan_pblocked(self, codes: np.ndarray):
-        """Pattern-blocked fused scan: ALL passes are dispatched before any
-        row is fetched (the device queues them back to back and each row's
-        copy to pinned memory runs behind its pass), then the hits merge
-        to the global (window-start, pattern) order."""
+        """Pattern-blocked fused scan: the passes' rows (:meth:`_pblock_rows`)
+        merged to the global (window-start, pattern) order."""
         codes_dev = device_form(codes, self.device)
         n = len(codes)
-        pending = []
-        for off, sub in self._pblock_subs():
-            with trace.span("scan.dispatch"):
-                caps = sub._presize(n)
-                host, ev = self._to_host(sub._dispatch(codes_dev, n, *caps))
-            pending.append((off, sub, host, ev, caps))
         out = []
-        for off, sub, host, ev, caps in pending:
-            if ev is not None:
-                with trace.span("scan.wait"):
-                    ev.synchronize()
-            ends, pids, mism = sub._decode_arrays(host.numpy(), codes_dev, n,
-                                                  caps)
+        for off, sub, ends, pids, mism in self._pblock_rows(codes_dev, n):
             with trace.span("scan.decode"):
                 lens = sub.tables.lengths
                 for end, p0, m in zip(ends.tolist(), pids.tolist(),
@@ -1064,6 +1098,39 @@ class ConvScanner:
             out.sort()
         for _start, pid, end, m in out:
             yield end, pid, m
+
+    def _pblock_rows(self, codes_dev, n: int):
+        """(off, sub-scanner, ends, pids, mism) of every pass.  ALL passes
+        are dispatched before any row is fetched (the device queues them
+        back to back and each row's copy to pinned memory runs behind its
+        pass), each keeping its occupancy until its row decodes.  The rows
+        are read in order: an overflowed pass's rescore retry is queued as
+        soon as its row is read (the filter is not re-run), and the other
+        rows decode while the device works; the retried rows decode
+        last."""
+        pending = deque()
+        for off, sub in self._pblock_subs():
+            with trace.span("scan.dispatch"):
+                caps = sub._presize(n)
+                occ = sub._filter(codes_dev, n)
+                row = sub._rescore(occ, codes_dev, n, *caps)
+            pending.append((off, sub, *self._to_host(row), caps, occ))
+        retried = deque()
+        while pending:
+            off, sub, host, ev, caps, occ = pending.popleft()
+            row = self._fetch(host, ev)
+            if sub._overflowed(row, caps):
+                with trace.span("scan.redispatch"):
+                    retried.append((off, sub, *sub._retry_row(codes_dev, n,
+                                                              row, occ),
+                                    occ))
+            else:
+                yield off, sub, *sub._decode_arrays(row, codes_dev, n, caps,
+                                                    occ)
+        while retried:
+            off, sub, host, ev, caps, occ = retried.popleft()
+            yield off, sub, *sub._decode_arrays(self._fetch(host, ev),
+                                                codes_dev, n, caps, occ)
 
     # -- streaming whole arrays ----------------------------------------------
 

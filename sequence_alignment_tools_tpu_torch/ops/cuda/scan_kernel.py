@@ -10,7 +10,9 @@ Counterpart of ``sequence_alignment_tools_tpu/ops/pallas/scan_kernel.py``:
   function, which the tests hold against the JAX package.
 - :func:`scan_hits` is ``pallas_scan_hits``: filter, compaction of the
   candidate microblocks, window gather, exact one-hot rescore, compaction
-  of the hits, and the same packed int32 row.
+  of the hits, and the same packed int32 row; :func:`rescore_hits` is
+  all of it after the filter, so that an overflowed row re-runs over the
+  occupancy it already has.
 """
 
 from __future__ import annotations
@@ -288,13 +290,32 @@ def scan_hits(codes: torch.Tensor, n: int, dt, eos: int, cap_mb: int,
     otherwise ``hits`` holds the bare indices and a mismatch section
     (hit_cap) follows.  Overflow is ``mb_count > cap_mb`` or
     ``hit_count > hit_cap``.  ``dt`` is the scanner's
-    :class:`..tables.DeviceTables`; nothing here waits for the device."""
+    :class:`..tables.DeviceTables`; nothing here waits for the device.
+    It is :func:`rescore_hits` over the :func:`scan_occupancy` of the
+    scan: a caller that keeps the occupancy can re-run the rescore alone
+    with larger caps."""
     if n < 1:
         raise ValueError("scan_hits needs n >= 1")
+    occ = scan_occupancy(codes, dt.weights16, dt.thresholds, n, eos, MB)
+    return rescore_hits(occ, codes, n, dt, eos, cap_mb, hit_cap, MB)
+
+
+def rescore_hits(occ: torch.Tensor, codes: torch.Tensor, n: int, dt,
+                 eos: int, cap_mb: int, hit_cap: int,
+                 MB: int = MB) -> torch.Tensor:
+    """The stages of :func:`scan_hits` after the filter, over its
+    occupancy ``occ`` (bool [ceil(n / MB)]): compaction of the candidate
+    microblocks, window gather, exact one-hot rescore, compaction of the
+    hits, and the packed row.  ``mb_count`` counts the whole of ``occ``
+    at any cap; ``hit_count`` only the hits inside the first ``cap_mb``
+    candidate microblocks.  The filter and the rescore test the same
+    scores, so every candidate microblock holds a hit: with ``cap_mb``
+    at least ``mb_count``, ``hit_count >= mb_count``."""
+    if n < 1:
+        raise ValueError("rescore_hits needs n >= 1")
     weights = dt.weights
     Lmax, alpha, P = weights.shape
     dev = codes.device
-    occ = scan_occupancy(codes, dt.weights16, dt.thresholds, n, eos, MB)
     nmb = occ.numel()
     mb_count, mb_idx = compact_mask(occ, cap_mb)
 

@@ -353,30 +353,35 @@ def _owned_hits(scanner, shard: _Shard, hits):
 def _fused_hits(scanner, codes, mesh: Mesh) -> list:
     """This process's hits of the fused route over its shards, in global
     positions and shard order.  Every shard is dispatched before any row
-    is read; when a shard overflows, the caps grow past the largest true
-    count (agreed over the group first, so that every process re-launches
-    together) and every shard runs again."""
+    is read; each shard's filter runs once and its occupancy is kept.
+    When a shard overflows, the caps grow past the largest counts (agreed
+    over the group first, so that every process re-launches together; the
+    hits of a shard are at least its candidate microblocks) and every
+    shard's rescore runs again over its kept occupancy."""
     t = scanner.tables
     shards = _shards_form(codes, mesh, t.Lmax - 1 + scanner.k, scanner._eos)
     nmax = max((s.n for s in shards), default=0)
+    occs = [scanner._filter(s.codes, s.n) for s in shards]
     while True:
         caps = scanner._presize(nmax) if nmax \
             else (scanner._cap_mb, scanner._hit_cap)
         caps = _agree(caps, mesh.group)
         scanner._cap_mb, scanner._hit_cap = caps
-        packed = [scanner._dispatch(s.codes, s.n, *caps) for s in shards]
+        packed = [scanner._rescore(occ, s.codes, s.n, *caps)
+                  for s, occ in zip(shards, occs)]
         rows = [p.cpu().numpy() for p in packed]
         need = _agree((max((int(r[0]) for r in rows), default=0),
                        max((int(r[1]) for r in rows), default=0)),
                       mesh.group)
         if need[0] <= caps[0] and need[1] <= caps[1]:
             break
+        trace.count("scan.rescore_retry", len(shards))
         scanner._cap_mb = max(caps[0], _pow2(need[0]))
-        scanner._hit_cap = max(caps[1], _pow2(need[1]))
+        scanner._hit_cap = max(caps[1], _pow2(max(need)))
     out = []
-    for s, row in zip(shards, rows):
+    for s, row, occ in zip(shards, rows, occs):
         out.extend(_owned_hits(scanner, s, scanner._decode_packed(
-            row, s.codes, s.n, tuple(caps))))
+            row, s.codes, s.n, tuple(caps), occ)))
     return out
 
 
@@ -399,8 +404,10 @@ def sharded_scan_stream(scanner, blocks, mesh: Mesh, depth: int = 32):
     the ``depth`` blocks behind it run.  A shard that overflows runs
     again with the caps grown (stickily).  Yields (block_index,
     hits_list), hits (end, pid, mism) in block-local positions, in the
-    unsharded stream's order.  A resident block (the same array object
-    every run) is sharded and uploaded once."""
+    unsharded stream's order.  Each shard keeps its filter occupancy
+    until its row decodes, so that an overflow re-runs its rescore alone.
+    A resident block (the same array object every run) is sharded and
+    uploaded once."""
     _one_process(mesh)
     t = scanner.tables
     halo = t.Lmax - 1 + scanner.k
@@ -409,11 +416,9 @@ def sharded_scan_stream(scanner, blocks, mesh: Mesh, depth: int = 32):
     def drain(item):
         i, items, caps = item
         out = []
-        for s, host, ev in items:
-            if ev is not None:
-                ev.synchronize()
+        for s, host, ev, occ in items:
             out.extend(_owned_hits(scanner, s, scanner._decode_packed(
-                host.numpy(), s.codes, s.n, caps)))
+                scanner._fetch(host, ev), s.codes, s.n, caps, occ)))
         return i, out
 
     pending = deque()
@@ -422,9 +427,10 @@ def sharded_scan_stream(scanner, blocks, mesh: Mesh, depth: int = 32):
         items = []
         if len(codes):
             for s in _shards_form(codes, mesh, halo, scanner._eos):
+                occ = scanner._filter(s.codes, s.n)
                 host, ev = scanner._to_host(
-                    scanner._dispatch(s.codes, s.n, *caps))
-                items.append((s, host, ev))
+                    scanner._rescore(occ, s.codes, s.n, *caps))
+                items.append((s, host, ev, occ))
         pending.append((i, items, caps))
         if len(pending) >= depth:
             yield drain(pending.popleft())

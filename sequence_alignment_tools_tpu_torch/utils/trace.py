@@ -29,7 +29,9 @@ The names in use:
   wrappers; ``scan.positions``, the text positions each call of a
   text-scanning kernel covers (``scan_occupancy``, ``scan_slots``,
   ``myers_pairs``, and ``sellers_scan`` per block of patterns; on the CPU
-  their plain versions); ``upload.bytes``, the bytes of text and tables
+  their plain versions); ``scan.rescore_retry``, each overflow retry of
+  the fused route served from a kept filter occupancy (the rescore
+  alone); ``upload.bytes``, the bytes of text and tables
   put on a scanner's device; ``cand.extend_in`` and ``cand.extend_ok``,
   the seed candidates handed to the host extension and those that extend.
 """

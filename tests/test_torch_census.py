@@ -19,6 +19,7 @@ On the same numpy ``PatternTables`` and code arrays, all exact:
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sequence_alignment_tools_tpu.io.database import SeqDB
 from sequence_alignment_tools_tpu.io.patterns import (
@@ -38,6 +39,7 @@ from sequence_alignment_tools_tpu_torch.native import load_shift_and_lib
 from sequence_alignment_tools_tpu_torch.ops import conv_scan
 from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
 from sequence_alignment_tools_tpu_torch.ops.gate import ExtendGate
+from sequence_alignment_tools_tpu_torch.utils import trace
 
 TABLE = b"ACGT\n"
 EOS = 4
@@ -247,10 +249,9 @@ def test_pattern_blocked_matches_xla_path(wide, k, monkeypatch):
     sc.use_host = False
     assert not sc._radix_eligible() and tables.P > sc._PBLOCK
     calls = []
-    real = conv_scan.scan_hits
-    monkeypatch.setattr(conv_scan, "scan_hits",
-                        lambda *a: calls.append(a[2].lengths.numel())
-                        or real(*a))
+    real = conv_scan.scan_occupancy
+    monkeypatch.setattr(conv_scan, "scan_occupancy",
+                        lambda *a: calls.append(a[2].numel()) or real(*a))
     seen = routes_of(sc, monkeypatch)
     assert list(sc.scan(db.codes)) == want
     assert calls[:2] == [2048, tables.P - 2048]  # both passes, in order
@@ -263,20 +264,55 @@ def test_pattern_blocked_matches_xla_path(wide, k, monkeypatch):
         assert got[1] == list(ref.scan(db.codes[:4000]))
 
 
-def test_pattern_blocked_cap_overflow(wide):
+@pytest.mark.parametrize("device, k", [
+    pytest.param("cpu", 0, id="0"),
+    pytest.param("cpu", 1, id="1"),
+    pytest.param("cuda", 0, id="cuda", marks=pytest.mark.cuda),
+])
+def test_pattern_blocked_cap_overflow(wide, device, k, monkeypatch):
     """Sub-scanner caps of 1 overflow in every pass; each pass retries on
-    its own and the merged stream is unchanged."""
+    its own, over its kept occupancy: the filter runs once a pass (n more
+    ``scan.positions`` a pass; on the card one ``scan_filter.cu`` launch
+    a pass), every overflowed row costs one rescore and one
+    ``scan.rescore_retry``, the microblock cap fits at the first retry
+    (its count is exact), the caps grow past the pass's true counts and
+    the merged stream equals the plain version's."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     db, tables = wide
-    sc = ConvScanner(tables, k=0, device="cpu")
+    n = len(db.codes)
+    sc = ConvScanner(tables, k=k, device="cpu")
     sc.use_host = False
     want = list(sc.scan(db.codes))
-    sc2 = ConvScanner(tables, k=0, device="cpu")
+    sc2 = ConvScanner(tables, k=k, device=device)
     sc2.use_host = False
-    for _off, sub in sc2._pblock_subs():
+    subs = sc2._pblock_subs()
+    for _off, sub in subs:
         sub._cap_mb = sub._hit_cap = 1
         sub._presize = lambda n, sub=sub: (sub._cap_mb, sub._hit_cap)
+    rescores = []
+    real = conv_scan.rescore_hits
+    monkeypatch.setattr(conv_scan, "rescore_hits",
+                        lambda *a: rescores.append((a[3].thresholds.numel(),
+                                                    a[5], a[6])) or real(*a))
+    positions = trace.total("scan.positions")
+    launches = trace.total("launch.scan_occupancy")
+    retries = trace.total("scan.rescore_retry")
     assert list(sc2.scan(db.codes)) == want
-    assert all(sub._hit_cap > 1 for _off, sub in sc2._pblock_subs())
+    assert trace.total("scan.positions") - positions == n * len(subs)
+    assert trace.total("launch.scan_occupancy") - launches == \
+        (len(subs) if device == "cuda" else 0)
+    assert trace.total("scan.rescore_retry") - retries == \
+        len(rescores) - len(subs)
+    for off, sub in subs:
+        mine = [(end - int(tables.lengths[pid]), pid) for end, pid, _m in want
+                if off <= pid < off + sub.tables.P]
+        assert len(mine) > 1
+        assert sub._hit_cap >= len(mine)
+        assert sub._cap_mb >= len({start // sub._MB for start, _p in mine})
+        calls = [c[1:] for c in rescores if c[0] == sub.tables.P]
+        assert calls[0] == (1, 1) and 2 <= len(calls) <= 3
+        assert len({cap_mb for cap_mb, _hit_cap in calls[1:]}) == 1
 
 
 class NoPresize(ConvScanner):

@@ -46,11 +46,12 @@ def _fused(tables, k):
 
 
 def _record_fused(monkeypatch):
-    """Record the length of every fused scan (``scan_hits`` call)."""
+    """Record the length of every fused scan (its filter, the
+    ``scan_occupancy`` call)."""
     calls = []
-    real = conv_scan.scan_hits
-    monkeypatch.setattr(conv_scan, "scan_hits",
-                        lambda *a: calls.append(a[1]) or real(*a))
+    real = conv_scan.scan_occupancy
+    monkeypatch.setattr(conv_scan, "scan_occupancy",
+                        lambda *a: calls.append(a[3]) or real(*a))
     return calls
 
 
@@ -93,20 +94,28 @@ def test_scan_stream_mixed_blocks(db):
     assert [h for _, h in got] == want
 
 
-def test_cap_overflow_retry(db):
+@pytest.mark.parametrize("stream", [False, True])
+def test_cap_overflow_retry(db, stream):
     """Caps of 1 overflow both the microblock and the hit sections; the
-    retry grows them past the true counts and the output is unchanged."""
+    retry grows them past the true counts and re-runs only the rescore
+    over the scan's kept occupancy (the filter runs once a scan: n more
+    ``scan.positions``, one ``scan.rescore_retry`` a scan), and the output
+    is unchanged, whole or streamed."""
     tables = _tables(db)
-    want = _want(tables, 1, db.codes)
+    blocks = [db.codes, db.codes[:20_000]] if stream else [db.codes]
+    want = [_want(tables, 1, b) for b in blocks]
     sc = _fused(tables, 1)
     sc._cap_mb = sc._hit_cap = 1
-    assert list(sc.scan(db.codes)) == want
-    assert sc._cap_mb >= 2 * len(PATS) and sc._hit_cap >= len(want)
-    sc2 = _fused(tables, 1)
-    sc2._cap_mb = sc2._hit_cap = 1
-    got = dict(sc2.scan_stream(iter([db.codes, db.codes[:20_000]])))
-    assert got[0] == want
-    assert got[1] == _want(tables, 1, db.codes[:20_000])
+    positions = trace.total("scan.positions")
+    retries = trace.total("scan.rescore_retry")
+    if stream:
+        got = [h for _i, h in sc.scan_stream(iter(blocks))]
+    else:
+        got = [list(sc.scan(db.codes))]
+    assert got == want
+    assert trace.total("scan.positions") - positions == sum(map(len, blocks))
+    assert trace.total("scan.rescore_retry") - retries == len(blocks)
+    assert sc._cap_mb >= 2 * len(PATS) and sc._hit_cap >= len(want[0])
 
 
 @pytest.mark.parametrize("k", [0, 1])

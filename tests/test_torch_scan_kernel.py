@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from sequence_alignment_tools_tpu.io.database import SeqDB
 from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
@@ -22,15 +24,23 @@ from sequence_alignment_tools_tpu.ops.pallas.scan_kernel import (
     pallas_scan_hits,
 )
 from sequence_alignment_tools_tpu.ops.tables import build_tables, conv_weights
+from sequence_alignment_tools_tpu_torch.io.patterns import (
+    build_pattern_set as port_pattern_set,
+)
 from sequence_alignment_tools_tpu_torch.ops.cuda.scan_kernel import (
     long_form,
+    rescore_hits,
     scan_hits,
     scan_occupancy,
     scan_occupancy_ref,
 )
+from sequence_alignment_tools_tpu_torch.ops.tables import (
+    build_tables as port_tables,
+)
 from sequence_alignment_tools_tpu_torch.ops.tables import device_tables
 from sequence_alignment_tools_tpu_torch.utils import trace
 from test_torch_filter import CASES as FILTER_CASES
+from test_torch_filter import DNA, cut, make_db
 from test_torch_filter import case_inputs as filter_case
 
 PATS = ["AGAAGCGAGTTCT", "CGCCAGCAGAGTT", "TTTTCTGAGAATCAAG",
@@ -183,6 +193,42 @@ def test_scan_hits_long_form_and_overflow(db):
         decode(short.numpy(), 256, 512, P, tables.lengths, n)
     assert int(scan_hits(codes, n, dt, EOS, 1, 512)[0]) == int(short[0]) > 1
     assert int(scan_hits(codes, n, dt, EOS, 256, 1)[1]) == int(short[1]) > 1
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2**32 - 1), k=st.sampled_from([0, 1, 2]),
+       n=st.integers(40, 1500), eos_every=st.sampled_from([0, 5, 40]),
+       npats=st.integers(1, 10), edits=st.integers(0, 3),
+       rev_comp=st.booleans())
+def test_flagged_microblocks_bound_the_hits(seed, k, n, eos_every, npats,
+                                            edits, rev_comp):
+    """Every microblock the filter flags holds a hit of the rescore (the
+    same weights, thresholds and EOS reading), so an overflow retry may
+    size its hit cap at the flagged count: over random texts, random
+    pattern sets at k = 0, 1 and 2 and poisoned EOS, the flagged
+    microblocks are exactly those of the post-filter stage's hits, and
+    ``mb_count <= hit_count``."""
+    rng = np.random.default_rng(seed)
+    db, text = make_db(DNA, n, seed, eos_every)
+    pats = cut(text, rng, npats, 3, min(14, n - 1), edits)
+    tables = port_tables(port_pattern_set(pats, rev_comp=rev_comp), db,
+                         wc=False, textn=False)
+    dt = device_tables(tables, k, True, "cpu")
+    codes = torch.from_numpy(db.codes)
+    eos = int(db.eos_code)
+    occ = scan_occupancy_ref(codes, dt.weights16, dt.thresholds, n, eos)
+    flagged = int(occ.sum())
+    cap_mb, P = occ.numel(), tables.P
+    hit_cap = cap_mb * MB * P
+    row = rescore_hits(occ, codes, n, dt, eos, cap_mb, hit_cap).numpy()
+    hit_count = int(row[1])
+    assert int(row[0]) == flagged <= hit_count <= hit_cap
+    hits = row[2 + cap_mb : 2 + cap_mb + hit_count].astype(np.int64)
+    idx = hits if long_form(cap_mb, P) else hits & 0xFFFFFF
+    assert np.unique(idx // (MB * P)).tolist() == list(range(flagged))
+    assert torch.equal(
+        rescore_hits(occ, codes, n, dt, eos, cap_mb, hit_cap),
+        scan_hits(codes, n, dt, eos, cap_mb, hit_cap))
 
 
 @pytest.mark.cuda

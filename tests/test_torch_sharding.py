@@ -52,6 +52,7 @@ from sequence_alignment_tools_tpu_torch.ops.conv_scan import (
 )
 from sequence_alignment_tools_tpu_torch.ops.sellers import SellersScanner
 from sequence_alignment_tools_tpu_torch.parallel import devcache, shard
+from sequence_alignment_tools_tpu_torch.utils import trace
 
 TABLE = b"ACGT\n"
 EOS = 4
@@ -137,11 +138,12 @@ def one_thread():
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The lengths of the fused scans (``scan_hits`` calls) made."""
+    """The lengths of the fused scans (their filters, ``scan_occupancy``
+    calls) made."""
     calls = []
-    real = conv_scan.scan_hits
-    monkeypatch.setattr(conv_scan, "scan_hits",
-                        lambda *a: calls.append(a[1]) or real(*a))
+    real = conv_scan.scan_occupancy
+    monkeypatch.setattr(conv_scan, "scan_occupancy",
+                        lambda *a: calls.append(a[3]) or real(*a))
     return calls
 
 
@@ -411,17 +413,23 @@ def test_many_seeds_run_unsharded(monkeypatch):
 # -- overflow: the caps start at 1 ----------------------------------------------
 
 
-def test_cap_one_overflow(dbs, tables):
+def test_cap_one_overflow(dbs, tables, launches):
+    """Caps of 1 overflow every shard; the stream and the scan run each
+    shard's filter once and re-run its rescore over the kept occupancy."""
     db, _ = dbs[3]
     t = tables(db)
     mesh = _mesh(3)
     want = _jax_scan(t, 1, db.codes)
     sc = ConvScanner(t, k=1, device="cpu")
     sc.mesh = mesh
-    sc._cap_mb = sc._hit_cap = 1
-    assert list(sc.scan_stream([db.codes])) == [(0, want)]
-    sc._cap_mb = sc._hit_cap = 1
-    assert list(sc.scan(db.codes)) == want
+    for run in (lambda: list(sc.scan_stream([db.codes])) == [(0, want)],
+                lambda: list(sc.scan(db.codes)) == want):
+        sc._cap_mb = sc._hit_cap = 1
+        launches.clear()
+        retries = trace.total("scan.rescore_retry")
+        assert run()
+        assert len(launches) == 3  # one filter a shard
+        assert trace.total("scan.rescore_retry") > retries
     assert sc._hit_cap > 1
     sel = SellersScanner(t, k=2, indels=True, device="cpu")
     sel.mesh = mesh
