@@ -31,10 +31,11 @@ class ControlProgram:
     program's place (an entry's ``Program`` interface): a query's hits
     are its rows already."""
 
-    def __init__(self, db, search: dict, device: str, control: dict):
+    def __init__(self, db, search: dict, devices: list[str],
+                 control: dict):
         from gpubench.reference import Reference
 
-        self.ref = Reference(db.codes, db.table, device)
+        self.ref = Reference(db.codes, db.table, devices[0])
         self.search = dict(search, **control)
         self.engine = "control"
         self.uploads = 0

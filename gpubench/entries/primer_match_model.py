@@ -3,11 +3,18 @@ as ``apps/primer_match.run`` and ``apps/peptide_scan.run`` drive it once
 the database is loaded (a traffic file's ``entry``: ``primer_match_model``).
 
 The harness hands it the database's codes, which it wraps in the port's
-``SeqDB`` (mapped with ``apply_charmap`` where the search says so) and
-uploads once.  One query is one client request: a pattern set built with
-``build_pattern_set``, a new ``PrimerMatchModel`` over the resident
-database (no mesh, the card named), every hit of ``hits()`` in hand, then
-``close()``.  The app's output formatting is not part of it.
+``SeqDB`` (mapped with ``apply_charmap`` where the search says so), and
+the cell's cards.  One query is one client request: a pattern set built
+with ``build_pattern_set``, a new ``PrimerMatchModel`` over the resident
+database, every hit of ``hits()`` in hand, then ``close()``.  The app's
+output formatting is not part of it.
+
+On one card the model gets no mesh and the card by name, and the
+database is uploaded once here.  On several it gets one mesh over the
+cards (``parallel.shard.make_mesh``), as the apps' ``mesh="auto"`` takes
+every visible GPU, and the first card by name; the database goes onto
+the cards as the port's sharded routes put it there, on the first query
+that scans (the warm-up), and any later re-upload counts in the window.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from ..databases import Database
 
 
 class Program:
-    def __init__(self, db: Database, search: dict, device: str):
+    def __init__(self, db: Database, search: dict, devices: list[str]):
         import torch
 
         from sequence_alignment_tools_tpu_torch.io.database import SeqDB
@@ -42,9 +49,17 @@ class Program:
                            producer_alphabet=len(db.table))
         self.db = apply_charmap(self.seqdb, int(search.get("charmap", 0)))
         self.search = search
-        self.device = device
+        self.device = devices[0]
         self._device_form = device_form
-        device_form(self.db.codes, torch.device(device))
+        self.mesh = None
+        if len(devices) > 1:
+            from sequence_alignment_tools_tpu_torch.parallel.shard import (
+                make_mesh,
+            )
+
+            self.mesh = make_mesh(devices)
+        else:
+            device_form(self.db.codes, torch.device(self.device))
         self.engine = None
 
     @property
@@ -70,7 +85,7 @@ class Program:
             model = PrimerMatchModel(
                 self.db, ps, k=int(s["k"]), indels=bool(s["indels"]),
                 dna_mut=bool(s.get("dna_mut")),
-                seedlen=int(s.get("seedlen", 0)), mesh=None,
+                seedlen=int(s.get("seedlen", 0)), mesh=self.mesh,
                 device=self.device)
         try:
             with span("hits"):

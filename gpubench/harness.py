@@ -12,8 +12,10 @@ A later cell adds files and entries and edits none of these.  A run:
 
 1. makes the configuration's database from the seed, and the traffic's
    set-up (its query list drawn from the seed);
-2. starts the device's memory peak afresh, so that it is the program's,
-   and hands the database to the program, which uploads it once;
+2. starts every card's memory peak afresh, so that it is the program's,
+   and hands the database and the cell's cards (``chips`` of them:
+   ``cuda:0`` onward, or as many entries of the CPU in the tests) to the
+   program, which puts it on them;
 3. runs the warm-up queries (one of each extreme size), with the route
    lines on;
 4. measures a closed loop with one client for ``seconds``: a query is
@@ -21,9 +23,9 @@ A later cell adds files and entries and edits none of these.  A run:
    the last query sent inside it returns;
 5. with ``trace``, measures that window under ``torch.profiler`` and the
    scanner spans, and reads the per-layer metrics from it;
-6. reads the memory peak, frees the program, and holds a sample of the
-   completed queries, drawn from the seed with the largest among them,
-   against the plain reference.
+6. reads the memory peak of every card, frees the program, and holds a
+   sample of the completed queries, drawn from the seed with the largest
+   among them, against the plain reference.
 """
 
 from __future__ import annotations
@@ -136,17 +138,29 @@ def warm_up(program, queries) -> list[str]:
     return routes
 
 
+def cell_devices(device: str, chips: int) -> list[str]:
+    """The cell's cards: ``cuda:0`` onward, or ``chips`` entries of the
+    CPU (the port's mesh takes repeated entries)."""
+    if device == "cuda":
+        return [f"cuda:{i}" for i in range(chips)]
+    return [device] * chips
+
+
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", cfg_over: dict | None = None,
-             spec_over: dict | None = None, program_cls=None) -> dict:
+             spec_over: dict | None = None, cell_over: dict | None = None,
+             program_cls=None) -> dict:
     """One run of ``workload``: the result line as a dict, with the
     compared numbers under ``checks`` (last) and the run's facts under
-    ``info``."""
+    ``info``.  ``cfg_over``, ``spec_over`` and ``cell_over`` replace keys
+    of the configuration, the traffic and the cell's entry."""
     seed %= 1 << 64                  # any whole number, as numpy takes it
-    bench, _cell, cfg, spec = cell_files(root, workload)
+    bench, cell, cfg, spec = cell_files(root, workload)
     cfg.update(cfg_over or {})
     spec.update(spec_over or {})
+    cell = dict(cell, **(cell_over or {}))
     cuda = device == "cuda"
+    devices = cell_devices(device, int(cell["chips"]))
 
     # set-up, with the process's age at the end of each phase
     ages = {"imports": process_age_s()}
@@ -157,13 +171,15 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     ages["traffic"] = process_age_s()
     if cuda:
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    program = (program_cls or entry_program(spec))(db, search, device)
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+    program = (program_cls or entry_program(spec))(db, search, devices)
     ages["upload"] = process_age_s()
     routes = warm_up(program, mix.warmup())
     engine = program.engine
     if cuda:
-        torch.cuda.synchronize()
+        for d in devices:
+            torch.cuda.synchronize(d)
     gc.collect()
     setup_s = process_age_s()
     ages["warm_up"] = setup_s
@@ -219,18 +235,21 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
             traced.append(TracedQuery(t0, t1, s_in, traffic.least_seconds(
                 db, search, q.patterns, len(hits)), phases))
     if cuda:
-        torch.cuda.synchronize()
+        for d in devices:
+            torch.cuda.synchronize(d)
     t_end = time.perf_counter_ns()
     if trace:
         prof.__exit__(None, None, None)
         scan.remove()
     window_s = (t_end - t_start) / 1e9
 
+    peaks = [int(torch.cuda.max_memory_allocated(d)) if cuda else 0
+             for d in devices]
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-                   "count": 1,
-                   "memory_peak_bytes": int(torch.cuda.max_memory_allocated())
-                   if cuda else 0}
+                   "count": len(devices),
+                   "memory_peak_bytes": max(peaks),
+                   "memory_peak_bytes_per_card": peaks}
     result = {"correct": False, "attempted": attempted, "failed": failed}
     wanted = cell_metrics(bench, workload, trace)
     metrics = {}
@@ -239,13 +258,14 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         ops, ranges = profiler_events(prof)
         del prof
         tr = Trace(traced, ops, t_start, t_end, clock_offset(sent, ranges),
-                   scan.spans)
+                   scan.spans, len(devices))
         for m in wanted:
             reader = importlib.import_module(f"gpubench.metrics.{m['name']}")
             v = reader.read(tr)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         device_info["busy_s"] = tr.busy_s()
+        device_info["busy_s_per_card"] = tr.busy_s_per_card()
         device_info["window_s"] = tr.window_s
         breakdown = tr.breakdown()
     else:

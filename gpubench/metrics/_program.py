@@ -33,16 +33,6 @@ def counted(trace, names) -> int | None:
                if lo <= t < hi and names(name))
 
 
-def idle_intervals(trace):
-    """[(start, end)] host ns of the window with nothing on the device."""
-    out, t = [], trace.window_start_ns
-    for a, b in trace.busy_intervals() + [[trace.window_end_ns] * 2]:
-        if a > t:
-            out.append((t, a))
-        t = max(t, b)
-    return out
-
-
 def _overlap(gaps, starts, a: int, b: int) -> int:
     """ns of [a, b) inside the sorted disjoint ``gaps``."""
     total = 0
@@ -55,9 +45,10 @@ def _overlap(gaps, starts, a: int, b: int) -> int:
 
 def idle_by_span(trace) -> dict[str, float] | None:
     """{span name: device-idle seconds in its self time}: each span's
-    interval less its children's, intersected with the idle intervals,
-    for the spans that open inside the window (so each idle moment counts
-    once, under the innermost span open then)."""
+    interval less its children's, intersected with each card's idle
+    intervals, the mean over the cell's cards, for the spans that open
+    inside the window (so each idle moment of a card counts once, under
+    the innermost span open then)."""
     port = port_trace(trace)
     if port is None:
         return None
@@ -68,20 +59,21 @@ def idle_by_span(trace) -> dict[str, float] | None:
     kids: dict[int, list] = {}
     for i in inside:
         kids.setdefault(recs[i].parent, []).append(recs[i])
-    gaps = idle_intervals(trace)
-    starts = [a for a, _ in gaps]
     out: dict[str, float] = {}
-    for i in inside:
-        r = recs[i]
-        a, end = r.start, min(r.end, hi)
-        ns = 0
-        for c in sorted(kids.get(i, ()), key=lambda c: c.start):
-            if c.start > a:
-                ns += _overlap(gaps, starts, a, min(c.start, end))
-            a = max(a, c.end)
-        if end > a:
-            ns += _overlap(gaps, starts, a, end)
-        out[r.name] = out.get(r.name, 0.0) + ns / 1e9
+    for card in range(trace.cards):
+        gaps = trace.idle_intervals(card)
+        starts = [a for a, _ in gaps]
+        for i in inside:
+            r = recs[i]
+            a, end = r.start, min(r.end, hi)
+            ns = 0
+            for c in sorted(kids.get(i, ()), key=lambda c: c.start):
+                if c.start > a:
+                    ns += _overlap(gaps, starts, a, min(c.start, end))
+                a = max(a, c.end)
+            if end > a:
+                ns += _overlap(gaps, starts, a, end)
+            out[r.name] = out.get(r.name, 0.0) + ns / 1e9 / trace.cards
     return out
 
 

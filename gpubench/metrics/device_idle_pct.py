@@ -1,5 +1,5 @@
 """device_idle_pct: the share of the traced window in which no kernel,
-copy or set ran on the device, in percent."""
+copy or set ran on a card, in percent: the mean over the cell's cards."""
 
 
 def read(trace):

@@ -1,7 +1,7 @@
 """glue_launches_per_query: kernels in the device trace per completed
 query that are not the port's own (the ``launch.*`` counts of its six
 CUDA wrappers inside the window): torch's gathers, scans, products and
-fills around them."""
+fills around them; the sum over the cell's cards."""
 
 from ._program import counted
 

@@ -1,5 +1,6 @@
-"""launches_per_query: kernel launches on the device per completed query
-(copies and sets not counted), from the profiler's trace."""
+"""launches_per_query: kernel launches on the devices per completed query
+(copies and sets not counted), from the profiler's trace: the sum over
+the cell's cards."""
 
 
 def read(trace):

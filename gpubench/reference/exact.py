@@ -2,12 +2,11 @@
 keyword tree engine): every exact occurrence of every pattern, one hit
 per (end, pattern), an occurrence never spanning the end-of-sequence
 code; under ``charmap`` 2, I and L are one letter in the text and the
-patterns alike."""
+patterns alike (the text folded block by block as it is scanned)."""
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .scan import occurrences, pattern_codes, reverse_complement, rows
 
@@ -33,9 +32,5 @@ def exact_hits(codes_t, codes_np, table: bytes, pats, eos: int,
     """Every exact occurrence of each pattern (ids 1..len(pats)), with
     ``fold`` applied to the text and the patterns alike."""
     pc = pattern_codes(pats, table, fold)
-    if fold is not None:
-        codes_t = torch.as_tensor(fold, device=codes_t.device)[
-            codes_t.to(torch.int64)]
-        codes_np = fold[codes_np]
-    ends, p0 = occurrences(codes_t, codes_np, pc, len(table), eos)
+    ends, p0 = occurrences(codes_t, codes_np, pc, len(table), eos, fold)
     return rows(ends, p0 + 1, np.zeros(len(ends), np.int64))

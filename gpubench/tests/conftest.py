@@ -1,5 +1,12 @@
-"""The harness's CPU tests: tiny sizes, the program on the CPU."""
+"""The harness's CPU tests: tiny sizes, the program on the CPU.
 
+Each cell of ``BENCHMARK.json`` has a file of its tiny size,
+``tiny/<cell>.json``: ``config`` and ``traffic`` hold the keys that
+replace the configuration's and the traffic's for a CPU test run, and an
+optional ``on_card`` the same two for a test on the card, at a size that
+reaches the kernels.  A new cell adds its file and edits no test."""
+
+import json
 import sys
 from pathlib import Path
 
@@ -9,19 +16,20 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# tiny versions of the two cells: every rule as benchmarked, the scale
-# cut to what a test run holds.  The primers are 5.5 bases shorter, so
-# that 2^17 random positions hold as many sites within one edit of a
-# primer as 2^28 hold of one 5.5 bases longer (4^5.5 = 2^11).
-TINY = {
-    "primer_chr1.k1_panel": (
-        {"positions": 1 << 17, "entry_length": 20_000},
-        {"pattern_length": [12, 21], "checked_queries": 4}),
-    "peptide_sprot.map": (
-        {"entries": 600, "residues": 600 * 361},
-        {"patterns_per_query": [20, 40], "size_steps": 5,
-         "checked_queries": 3}),
-}
+TINY_DIR = Path(__file__).resolve().parent / "tiny"
+
+
+def _tiny_files() -> dict[str, dict]:
+    return {p.stem: json.loads(p.read_text())
+            for p in sorted(TINY_DIR.glob("*.json"))}
+
+
+TINY_FILES = _tiny_files()
+# {cell: (configuration keys, traffic keys)} at the tiny size
+TINY = {w: (t["config"], t["traffic"]) for w, t in TINY_FILES.items()}
+# the same on the card, where a file gives it (else the tiny size)
+ON_CARD = {w: (t["on_card"]["config"], t["on_card"]["traffic"])
+           if "on_card" in t else TINY[w] for w, t in TINY_FILES.items()}
 
 
 @pytest.fixture
@@ -32,3 +40,13 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return "cuda"
+
+
+@pytest.fixture
+def four_cards(cuda_device):
+    """Skips where there are fewer than four cards."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    return cuda_device

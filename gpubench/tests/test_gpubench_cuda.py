@@ -1,6 +1,7 @@
 """The harness on the card at a small size: the kernels' path is correct
-and traced, and the reference gives the same answers on the card as on
-the CPU.  Run on a machine with a card:
+and traced, on one card and on a mesh of four, and the reference gives
+the same answers on the card as on the CPU.  Run on a machine with a
+card (four for the mesh):
 
     python -m pytest -m cuda gpubench/tests
 """
@@ -8,19 +9,9 @@ the CPU.  Run on a machine with a card:
 import numpy as np
 import pytest
 
-from conftest import ROOT, TINY
+from conftest import ON_CARD, ROOT, TINY
 from gpubench import databases, harness, mixes
 from gpubench.reference import Reference
-
-# past 2^26 positions the port's scanners leave the host machines for
-# the kernels, as at the cells' full sizes
-ON_CARD = {
-    "primer_chr1.k1_panel": ({"positions": 1 << 27},
-                             {"checked_queries": 4}),
-    "peptide_sprot.map": ({"entries": 250_000, "residues": 250_000 * 361},
-                          {"patterns_per_query": [2000, 3000],
-                           "size_steps": 2, "checked_queries": 3}),
-}
 
 
 @pytest.mark.cuda
@@ -52,3 +43,19 @@ def test_reference_on_the_card_equals_the_cpu(cuda_device, workload):
     on_cpu = Reference(db.codes, db.table, "cpu").answer(
         spec["search"], q.patterns)
     assert np.array_equal(on_card, on_cpu)
+
+
+@pytest.mark.cuda
+def test_panel_on_four_cards_is_correct_and_traced(four_cards):
+    cfg_over, spec_over = TINY["primer_chr1.k1_panel"]
+    r = harness.run_cell(ROOT, "primer_chr1.k1_panel", 2**31 + 33, 1.0,
+                         True, device=four_cards, cfg_over=cfg_over,
+                         spec_over=spec_over, cell_over={"chips": 4})
+    assert r["correct"] is True
+    assert r["info"]["engine"] == "halves"
+    assert any("sharded over 4 devices" in x for x in r["info"]["routes"])
+    assert r["device"]["count"] == 4
+    assert len(r["device"]["memory_peak_bytes_per_card"]) == 4
+    assert r["device"]["memory_peak_bytes"] == max(
+        r["device"]["memory_peak_bytes_per_card"])
+    assert all(b > 0 for b in r["device"]["busy_s_per_card"])

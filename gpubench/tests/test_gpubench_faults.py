@@ -1,8 +1,10 @@
 """A run with the timed path broken underneath comes out not correct:
 one test for each fault the cells can have, and the control (the plain
 reference with one of the configuration's guarantees broken, in the
-program's place).  The look for a card is skipped; the program runs on
-the CPU at a tiny size."""
+program's place), on one card and on a mesh of four shards.  The look
+for a card is skipped; the program runs on the CPU at a tiny size.  The
+faults are the entry's ``Program(db, search, devices)`` with its query
+broken."""
 
 from dataclasses import dataclass
 from functools import partial
@@ -61,10 +63,23 @@ class Unchanged(Program):
         return []
 
 
-def run(workload, program_cls, seed=2**31 + 21):
+class ExchangeLeftOut(Program):
+    """On a mesh, only the first card's shard answers: the hits the other
+    cards find never reach the client."""
+
+    def query(self, patterns, phases=None):
+        hits = super().query(patterns, phases)
+        shard = -(-len(self.db.codes) // self.mesh.size)
+        return [h for h in hits if h.end <= shard]
+
+
+def run(workload, program_cls, seed=2**31 + 21, chips=None):
+    """A run at the tiny size, on the cell's own number of cards or on
+    ``chips`` (entries of the CPU)."""
     cfg_over, spec_over = TINY[workload]
     return harness.run_cell(ROOT, workload, seed, 0.5, False, device="cpu",
                             cfg_over=cfg_over, spec_over=spec_over,
+                            cell_over={"chips": chips} if chips else None,
                             program_cls=program_cls)
 
 
@@ -89,6 +104,26 @@ def test_the_sound_path_is_correct(workload):
 def test_the_control_is_not_correct(workload, seed):
     spec = harness.cell_files(ROOT, workload)[3]
     r = run(workload, partial(ControlProgram, control=spec["control"]), seed)
+    assert r["correct"] is False
+    checks = r["checks"]
+    assert checks["missing_hits"]["value"] + checks["extra_hits"]["value"] > 0
+
+
+@pytest.mark.parametrize("fault", [AlteredHit, HalfLeftOut, Unchanged,
+                                   ExchangeLeftOut],
+                         ids=["hit-altered", "half-left-out", "unchanged",
+                              "exchange-left-out"])
+def test_a_broken_path_on_four_shards_is_not_correct(fault):
+    r = run("primer_chr1.k1_panel", fault, chips=4)
+    assert r["device"]["count"] == 4
+    assert r["correct"] is False
+    assert r["checks"]["missing_hits"]["value"] > 0
+
+
+def test_the_control_on_four_shards_is_not_correct():
+    spec = harness.cell_files(ROOT, "primer_chr1.k1_panel")[3]
+    r = run("primer_chr1.k1_panel",
+            partial(ControlProgram, control=spec["control"]), chips=4)
     assert r["correct"] is False
     checks = r["checks"]
     assert checks["missing_hits"]["value"] + checks["extra_hits"]["value"] > 0

@@ -196,7 +196,7 @@ def test_reference_equals_the_program_on_the_cpu(seed):
     rng = np.random.default_rng(seed + 30)
     pats = draw_patterns(db, rng, 20)
     search = {"engine": "halves", "k": 1, "indels": True, "rev_comp": True}
-    program = Program(db, search, "cpu")
+    program = Program(db, search, ["cpu"])
     got = program.rows(program.query(pats))
     want = Reference(db.codes, db.table, "cpu").answer(search, pats)
     assert len(want) > 0
@@ -208,3 +208,86 @@ def test_compare_counts_multisets():
     b = np.array([[5, 1, 0], [9, 2, 0]])
     assert compare(a, b) == (1, 2)
     assert compare(b, b) == (0, 0)
+
+
+def plant(codes, table, pat: str, start: int) -> None:
+    codes[start:start + len(pat)] = [table.index(c.encode()) for c in pat]
+
+
+def planted_db(codes, table, pats, block, eos_every, edit=False):
+    """``codes`` with EOS every ``eos_every`` positions and copies of the
+    patterns planted: each block boundary straddled by one (pattern i at
+    the boundaries i, i + len(pats), ...; its first half straddles it
+    too), one of each ending at an entry's end and one at the end of the
+    text; the database and the (end, pattern index) of each copy that no
+    later one overwrote.  With ``edit``, each copy has its second half's
+    middle letter substituted, so that only its first half seeds it."""
+    if edit:
+        alpha = table[:-1].decode()
+        pats = [p[:len(p) * 3 // 4]
+                + alpha[(alpha.index(p[len(p) * 3 // 4]) + 1) % len(alpha)]
+                + p[len(p) * 3 // 4 + 1:] for p in pats]
+    codes = codes.copy()
+    n = len(codes)
+    eos = len(table) - 1
+    eos_at = np.arange(0, n, eos_every)
+    codes[eos_at] = eos
+    at = [(b - len(pats[j % len(pats)]) // 4 - 1, j % len(pats))
+          for j, b in enumerate(range(block, n, block))]
+    at += [(eos_at[3 + 4 * i] - len(p), i) for i, p in enumerate(pats)]
+    at += [(n - len(pats[-1]), len(pats) - 1)]
+    for s, i in at:
+        if not (codes[s:s + len(pats[i])] == eos).any():
+            plant(codes, table, pats[i], s)
+    want = [(s + len(pats[i]), i) for s, i in at
+            if [table[c] for c in codes[s:s + len(pats[i])]]
+            == list(pats[i].encode())]
+    starts = eos_at + 1
+    return Database(codes, table, starts, np.minimum(eos_every - 1,
+                                                     n - starts)), want
+
+
+def blocked_and_whole(monkeypatch, db, search, pats):
+    from gpubench.reference import scan
+
+    whole = Reference(db.codes, db.table, "cpu").answer(search, pats)
+    monkeypatch.setattr(scan, "BLOCK", 3001)
+    blocked = Reference(db.codes, db.table, "cpu").answer(search, pats)
+    return blocked, whole
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blocked_halves_equal_one_block(monkeypatch, seed):
+    rng = np.random.default_rng(seed + 40)
+    base = rng.choice(4, 40_000, p=[0.4, 0.4, 0.1, 0.1]).astype(np.uint8)
+    pats = ["".join("ACGT"[c] for c in rng.integers(0, 4, m))
+            for m in (13, 18, 22)]
+    db, want = planted_db(base, DNA, pats, 3001, 997, edit=True)
+    search = {"engine": "halves", "k": 1, "indels": True, "rev_comp": True}
+    blocked, whole = blocked_and_whole(monkeypatch, db, search, pats)
+    assert np.array_equal(blocked, whole)
+    got = {(e, p) for e, p, _ed in whole.tolist()}
+    assert len(want) >= 12
+    assert any(e == len(db) for e, _i in want)
+    assert all((e, i + 1) in got for e, i in want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blocked_exact_with_i_and_l_equal_one_block(monkeypatch, seed):
+    table = b"ACDEFGHIKLMNPQRSTVWY\n"
+    rng = np.random.default_rng(seed + 50)
+    base = rng.integers(0, 20, 40_000).astype(np.uint8)
+    # 9 codes fit one key; 15 and 19 have their rest compared on the host
+    pats = ["".join(table.decode()[c] for c in rng.integers(0, 20, m))
+            for m in (9, 15, 19)]
+    pats = [p[:3] + "IL" + p[5:] for p in pats]
+    db, want = planted_db(base, table, pats, 3001, 997)
+    swapped = [p.replace("I", "#").replace("L", "I").replace("#", "L")
+               for p in pats]
+    search = {"engine": "exact", "k": 0, "charmap": 2}
+    blocked, whole = blocked_and_whole(monkeypatch, db, search, swapped)
+    assert np.array_equal(blocked, whole)
+    got = {(e, p) for e, p, _ed in whole.tolist()}
+    assert len(want) >= 12
+    assert any(e == len(db) for e, _i in want)
+    assert all((e, i + 1) in got for e, i in want)

@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from conftest import ROOT, TINY
+from conftest import ROOT, TINY, TINY_FILES
 from gpubench import harness
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -54,9 +54,12 @@ def test_configs_and_cells_have_their_files():
         assert (ROOT / "gpubench" / "databases" /
                 f"{body['kind']}.py").exists()
     used = set()
+    # four cards for at most a quarter of the cells, rounded down, or one
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
     for w in BENCH["workloads"]:
         assert w["name"] == f"{w['config']}.{w['traffic']}"
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         spec = json.loads((ROOT / "gpubench" / "traffic" /
                            f"{w['traffic']}.json").read_text())
         assert spec["control"] and spec["sources"]
@@ -66,6 +69,17 @@ def test_configs_and_cells_have_their_files():
             assert (ROOT / "gpubench" / family / f"{name}.py").exists()
         used.add(w["config"])
     assert used == set(cfgs)
+
+
+def test_every_cell_has_its_tiny_size():
+    cells = {w["name"] for w in BENCH["workloads"]}
+    assert set(TINY_FILES) == cells
+    for name, tiny in TINY_FILES.items():
+        assert set(tiny) <= {"why", "config", "traffic", "on_card"}
+        assert isinstance(tiny["config"], dict)
+        assert isinstance(tiny["traffic"], dict)
+        if "on_card" in tiny:
+            assert set(tiny["on_card"]) == {"config", "traffic"}
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +99,9 @@ def test_result_line_schema(primer_result):
         assert r["attempted"] >= 1
         assert set(r["device"]) >= {"platform", "kind", "count",
                                     "memory_peak_bytes"}
+        assert r["device"]["count"] == 1
+        assert r["device"]["memory_peak_bytes_per_card"] == [
+            r["device"]["memory_peak_bytes"]]
         for c in r["checks"].values():
             assert set(c) == {"value", "limit"}
         group = BENCH["per_layer"] if trace else BENCH["end_to_end"]

@@ -7,8 +7,9 @@ the calls into the program's layers.
   call and, where a method is a generator, each resumption of it.
 - :class:`Trace` holds what a per-layer metric reads (``metrics/*.py``):
   each traced query's wall and scanner seconds and least time, and the
-  device's operations from the profiler (kernels, copies, sets), with the
-  busy time, the idle gaps and what the host was doing in each.
+  devices' operations from the profiler (kernels, copies, sets), each on
+  its card, with each card's busy time and idle gaps, their mean over the
+  cell's cards, and what the host was doing in each gap.
 
 Host spans use ``time.perf_counter_ns``; one ``record_function`` range
 per query ties that clock to the profiler's.
@@ -109,6 +110,7 @@ class DeviceOp:
     name: str
     start_ns: int
     end_ns: int
+    card: int = 0           # the CUDA device index it ran on
 
     @property
     def is_kernel(self) -> bool:
@@ -139,7 +141,8 @@ def profiler_events(prof):
             continue
         if ev.device_type() == DeviceType.CUDA:
             ops.append(DeviceOp(ev.name(), start,
-                                start + _ns(ev, "duration")))
+                                start + _ns(ev, "duration"),
+                                int(ev.device_index())))
     ops.sort(key=lambda o: o.start_ns)
     return ops, ranges
 
@@ -147,7 +150,10 @@ def profiler_events(prof):
 @dataclass
 class Trace:
     """A traced window: queries on the host clock, device operations on
-    the profiler's, and the offset between the two clocks."""
+    the profiler's, and the offset between the two clocks.  ``cards`` is
+    the number of the cell's cards (CUDA devices 0 .. cards - 1): busy
+    time, idle time and idle gaps are each card's, and their mean over
+    the cards where one number is read."""
 
     queries: list[TracedQuery]
     ops: list[DeviceOp]
@@ -155,17 +161,20 @@ class Trace:
     window_end_ns: int
     offset_ns: int          # profiler time = host time + offset
     scan_spans: list
+    cards: int = 1
 
     @property
     def window_s(self) -> float:
         return (self.window_end_ns - self.window_start_ns) / 1e9
 
-    def busy_intervals(self):
-        """Merged device intervals, on the host clock, clipped to the
-        window."""
+    def busy_intervals(self, card: int = 0):
+        """Merged intervals of ``card``'s operations, on the host clock,
+        clipped to the window."""
         out = []
         lo, hi = self.window_start_ns, self.window_end_ns
         for op in self.ops:
+            if op.card != card:
+                continue
             a = max(op.start_ns - self.offset_ns, lo)
             b = min(op.end_ns - self.offset_ns, hi)
             if b <= a:
@@ -176,18 +185,23 @@ class Trace:
                 out.append([a, b])
         return out
 
-    def busy_s(self) -> float:
-        return sum(b - a for a, b in self.busy_intervals()) / 1e9
+    def busy_s_per_card(self) -> list[float]:
+        return [sum(b - a for a, b in self.busy_intervals(c)) / 1e9
+                for c in range(self.cards)]
 
-    def idle_gaps(self):
-        """[(middle ns, seconds)] of every stretch of the window with
-        nothing on the device."""
-        gaps, t = [], self.window_start_ns
-        for a, b in self.busy_intervals() + [[self.window_end_ns] * 2]:
+    def busy_s(self) -> float:
+        """Seconds in which an operation ran, the mean over the cards."""
+        return sum(self.busy_s_per_card()) / self.cards
+
+    def idle_intervals(self, card: int = 0):
+        """[(start, end)] host ns of the window with nothing on
+        ``card``."""
+        out, t = [], self.window_start_ns
+        for a, b in self.busy_intervals(card) + [[self.window_end_ns] * 2]:
             if a > t:
-                gaps.append(((a + t) // 2, (a - t) / 1e9))
+                out.append((t, a))
             t = max(t, b)
-        return gaps
+        return out
 
     def label(self, t: int) -> str:
         """The innermost harness span open at host time ``t``."""
@@ -203,9 +217,10 @@ class Trace:
         return "query"
 
     def breakdown(self) -> dict:
-        """The device operations that took most time, by name, and the
-        idle seconds by the harness span open at the time, largest first
-        (at most 10 of each)."""
+        """The device operations that took most time, by name (summed
+        over the cards), and the idle seconds by the harness span open at
+        the time (the mean over the cards), largest first (at most 10 of
+        each)."""
         self._q_starts = [q.start_ns for q in self.queries]
         self._s_starts = [a for a, _ in self.scan_spans]
         by_name: dict[str, float] = {}
@@ -213,9 +228,10 @@ class Trace:
             by_name[op.name] = by_name.get(op.name, 0.0) \
                 + (op.end_ns - op.start_ns) / 1e9
         idle: dict[str, float] = {}
-        for mid, sec in self.idle_gaps():
-            lab = self.label(mid)
-            idle[lab] = idle.get(lab, 0.0) + sec
+        for card in range(self.cards):
+            for a, b in self.idle_intervals(card):
+                lab = self.label((a + b) // 2)
+                idle[lab] = idle.get(lab, 0.0) + (b - a) / 1e9 / self.cards
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         gaps = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
         return {"device_ops": [[n, s] for n, s in top],
