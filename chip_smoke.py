@@ -68,7 +68,10 @@ the same paths over a device mesh) at full size and checks their output:
    1- and 2-edit plant found; ``engine_hits_stream`` throughput with the
    host tail, the tail alone and a ``torch.profiler`` breakdown; the
    Myers kernel at 2^28 against plain (and beside the older commit's);
-   then ``-K 2`` (the poisoned k-mismatch scan) against the host route;
+   then a whole-genome panel's shape (:func:`blocked_panel_phase`: 96
+   Myers words in 3 groups over a blocked scan of the 2^28 copy, and
+   that route timed against Sellers at 34, 64 and 96 patterns); then
+   ``-K 2`` (the poisoned k-mismatch scan) against the host route;
 10. the Sellers route: 24 primers of 32 to 40 bases with their reverse
     complements (P = 48, Lmax = 40), k = 2, over the first 2^26 positions
     with the primers planted; engine hits equal to the host route's (the
@@ -549,11 +552,13 @@ def parent_kernels():
                 myers_segc,
             )
 
+            if len(mt.groups) != 1:
+                raise ValueError("parent myers takes one group of words")
             halo = mt.Lmax + k
             words = np.ascontiguousarray(mt.words_np, np.int32)
             out = torch.zeros(1 + 2 * cap, dtype=torch.int32,
                               device=codes.device)
-            rc = mfn(codes.data_ptr(), n, mt.eq.data_ptr(),
+            rc = mfn(codes.data_ptr(), n, mt.groups[0].data_ptr(),
                      words.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                      mt.nw, eos, k, myers_segc(n, halo), halo,
                      out.data_ptr(), cap, stream())
@@ -808,6 +813,107 @@ def row_set(row, cap, width):
     cols = [row[1 + i * cap : 1 + i * cap + m].tolist()
             for i in range(width)]
     return int(row[0]), set(zip(*cols))
+
+
+def blocked_panel_phase(db, main_dev, smi, dev):
+    """Phase 8c: a panel shaped like primer_grch38.k2_panel's (48 primers
+    of 18 to 27 bases, both strands: 96 Myers words, 3 groups of 32) over
+    a blocked scan of the resident 2^28 copy ``main_dev``, the block
+    lowered to 2^26: one ``myers_pairs`` launch a group a block, the
+    multi-group launch on a view past a seam equal to ``myers_pairs_ref``,
+    the blocked pairs equal to one scan's; then that route (Myers, a
+    launch per group) against the one it replaced for more than 32 words
+    (Sellers, one launch) over the whole 2^28."""
+    from sequence_alignment_tools_tpu_torch.io.patterns import build_pattern_set
+    from sequence_alignment_tools_tpu_torch.ops.cuda.myers import (
+        myers_pairs,
+        myers_pairs_ref,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.sellers import SellersScanner
+    from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
+    from sequence_alignment_tools_tpu_torch.utils import trace
+
+    codes = db.codes
+    pr = np.random.default_rng(SEED + 9)
+    seams = range(1 << 26, MAIN_N, 1 << 26)
+    # a site ending just past each seam (its block's halo holds its start)
+    # and one ending just before it (in the next block's halo, so the
+    # block before must keep it), then sites anywhere
+    sites = [(at + d, int(pr.integers(18, 28))) for at in seams
+             for d in (3, -2)]
+    panel = []
+    while len(panel) < 48:
+        end, ln = sites.pop(0) if sites else (
+            int(pr.integers(32, MAIN_N)), int(pr.integers(18, 28)))
+        if (codes[end - ln : end] < 4).all():
+            panel.append("".join("ACGT"[c] for c in codes[end - ln : end]))
+    pt = build_tables(build_pattern_set(panel, rev_comp=True), db, wc=False,
+                      textn=False)
+    sc_one = SellersScanner(pt, k=2, indels=True, device=dev)
+    sc_blk = SellersScanner(pt, k=2, indels=True, device=dev)
+    sc_blk._KEDIT_BLOCK = 1 << 26
+    if not sc_blk.myers_available(MAIN_N):
+        raise AssertionError("the panel did not take the Myers route")
+    mtp = sc_blk._myers_t()
+    ngroups = len(mtp.groups)
+    if ngroups != 3 or mtp.nw != 96:
+        raise AssertionError(f"panel: {mtp.nw} words in {ngroups} groups")
+    blocks = sc_blk._blocks(MAIN_N)
+    ran = Launches()
+    nb0 = trace.total("scan.blocks")
+    ends_b, pids_b = sc_blk.scan_pairs(codes)
+    if ran["myers_pairs"] != ngroups * len(blocks) \
+            or trace.total("scan.blocks") - nb0 != len(blocks):
+        raise AssertionError(f"blocked panel scan: {ran['myers_pairs']} "
+                             f"launches over {len(blocks)} blocks")
+    ends_1, pids_1 = sc_one.scan_pairs(codes)
+    if not len(ends_1) or sorted(zip(ends_b.tolist(), pids_b.tolist())) \
+            != sorted(zip(ends_1.tolist(), pids_1.tolist())):
+        raise AssertionError(f"blocked panel scan differs from one scan: "
+                             f"{len(ends_b)} vs {len(ends_1)} pairs")
+    view, lo, hi = blocks[1]
+    seam = main_dev[view:hi]
+    cap_p = sc_blk._cap("myers", hi - view)
+    ran = Launches()
+    p_row = myers_pairs(seam, hi - view, mtp, EOS, 2, cap_p)
+    if ran["myers_pairs"] != ngroups:
+        raise AssertionError(f"myers_pairs: {ran['myers_pairs']} launches "
+                             f"for {ngroups} groups")
+    p_ref, p_plain = timed(lambda: myers_pairs_ref(seam, hi - view, mtp,
+                                                   EOS, 2, cap_p))
+    if row_set(p_row, cap_p, 2) != row_set(p_ref, cap_p, 2):
+        raise AssertionError("myers_pairs differs from plain on the panel "
+                             "past a seam")
+    for at in seams:
+        if not ((ends_b >= at - 2) & (ends_b <= at + 3)).any():
+            raise AssertionError(f"no candidate at the seam {at}")
+    log(f"panel of {len(panel)} primers ({mtp.nw} words, {ngroups} "
+        f"groups), k=2, 2^28 in {len(blocks)} blocks of 2^26: "
+        f"{len(ends_b)} pairs == one scan, sites at each seam found; "
+        f"myers_pairs on the view "
+        f"[{view}, {hi}) == plain ({int(p_row[0])} pairs, plain "
+        f"{p_plain:.4f} ms), {ngroups} launches")
+    # this route against Sellers over the whole 2^28
+    for npat in (34, 64, 96):
+        sub_t = build_tables(build_pattern_set(panel[: npat // 2],
+                                               rev_comp=True), db,
+                             wc=False, textn=False)
+        scx = SellersScanner(sub_t, k=2, indels=True, device=dev)
+        cap_x = max(scx._cap("myers", MAIN_N), 1 << 20)
+        my_set = row_set(scx._dispatch("myers", main_dev, MAIN_N, cap_x),
+                         cap_x, 2)
+        sel_n, sel_set = row_set(scx._dispatch("sellers", main_dev, MAIN_N,
+                                               cap_x), cap_x, 3)
+        if my_set != (sel_n, {(p, q) for p, q, _d in sel_set}):
+            raise AssertionError(f"Myers and Sellers differ at P={npat}")
+        my_t = cuda_ms(lambda: scx._dispatch("myers", main_dev, MAIN_N,
+                                             cap_x), reps=5)
+        sel_t = cuda_ms(lambda: scx._dispatch("sellers", main_dev, MAIN_N,
+                                              cap_x), reps=5)
+        log(f"panel route at n=2^28, P={npat} ({scx._myers_t().nw} words), "
+            f"k=2 on {smi}: Myers {my_t:.4f} ms "
+            f"({len(scx._myers_t().groups)} launches), Sellers "
+            f"{sel_t:.4f} ms (CUDA events, median; equal pairs)")
 
 
 def check_kedit(cases):
@@ -3451,6 +3557,9 @@ def main():
     log(f"myers_pairs at n=2^28, P=20 ({mt2.nw} words), k=2 on {smi}: "
         f"kernel {my_ms:.4f} ms, plain {my_plain:.4f} ms (CUDA events; "
         f"equal; {my_pairs_n} pairs)")
+
+    # 8c. a whole-genome panel's shape over a blocked scan
+    blocked_panel_phase(db, main_dev, smi, dev)
     del main_dev, m2h
 
     # 8b. -K 2: the poisoned k-mismatch scan at 2^28

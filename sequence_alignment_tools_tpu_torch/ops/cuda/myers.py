@@ -18,7 +18,9 @@ guard bit at la (the add's carry dies there), field B from la + 1.
 moves field B to the top of its word and keeps the scores biased by
 -(k + 1); ``tests/test_torch_myers_words.py`` models that arithmetic) and
 runs :func:`myers_pairs_ref`, the same recurrence over int64 words in
-plain PyTorch, on a CPU tensor.
+plain PyTorch, on a CPU tensor.  A set of more than :data:`MAX_WORDS`
+words launches the kernel once per group of :data:`MAX_WORDS` words, every
+launch appending to one row.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 
 from ...utils import trace
 
-# the kernel keeps at most this many 32-bit words of state per thread
+# the kernel keeps at most this many 32-bit words of state per thread: a
+# launch takes one group of at most this many words
 MAX_WORDS = 32
 # every field of a word holds at most this many pattern positions
 MAX_FIELD = 31
@@ -95,12 +98,14 @@ def myers_eqbits(tables):
 class MyersTables:
     """The Myers operands of one pattern set on one device.
 
-    ``eq``: [256, nw] int32, the accept bits of word w for text code c
-    (rows of codes no pattern accepts, EOS included, are 0).  ``words_np``:
-    [nw, 4] int32 host array (pattern A, pattern B or -1, length A,
-    length B or 0) per word.  ``Lmax``: the longest pattern."""
+    ``groups``: the accept bits, one contiguous [256, <= MAX_WORDS] int32
+    tensor a launch; column j of group g holds the accept bits of word
+    g * MAX_WORDS + j for text code c (rows of codes no pattern accepts,
+    EOS included, are 0).  ``words_np``: [nw, 4] int32 host array
+    (pattern A, pattern B or -1, length A, length B or 0) per word.
+    ``Lmax``: the longest pattern."""
 
-    eq: torch.Tensor
+    groups: tuple
     words_np: np.ndarray
     Lmax: int
 
@@ -109,8 +114,9 @@ class MyersTables:
         return len(self.words_np)
 
     def to(self, device) -> MyersTables:
-        trace.count("upload.bytes", self.eq.nbytes)
-        return MyersTables(self.eq.to(device), self.words_np, self.Lmax)
+        trace.count("upload.bytes", sum(g.nbytes for g in self.groups))
+        return MyersTables(tuple(g.to(device) for g in self.groups),
+                           self.words_np, self.Lmax)
 
 
 def myers_tables(tables) -> MyersTables:
@@ -122,7 +128,10 @@ def myers_tables(tables) -> MyersTables:
             eq[c, w] = row[ci]
     words = np.asarray([(pa, pb, lens[pa], lens[pb] if pb >= 0 else 0)
                         for pa, pb in wordspec], np.int32).reshape(-1, 4)
-    return MyersTables(torch.from_numpy(eq), words, max(lens, default=1))
+    groups = tuple(
+        torch.from_numpy(np.ascontiguousarray(eq[:, w:w + MAX_WORDS]))
+        for w in range(0, max(len(wordspec), 1), MAX_WORDS))
+    return MyersTables(groups, words, max(lens, default=1))
 
 
 def myers_segc(n: int, halo: int) -> int:
@@ -162,7 +171,7 @@ def myers_pairs_ref(codes: torch.Tensor, n: int, mt: MyersTables, eos: int,
                      device=dev)
     pad[halo : halo + n] = codes[:n]
     text = pad.unfold(0, halo + segc, segc)  # [nseg, halo + segc]
-    eq = mt.eq.to(dev).long() & 0xFFFFFFFF
+    eq = torch.cat(mt.groups, 1).to(dev).long() & 0xFFFFFFFF
     words = mt.words_np
     ones, smask, top_a, top_b, la, lb = (
         torch.from_numpy(a).to(dev) for a in _word_consts(words))
@@ -220,13 +229,13 @@ def _check(codes, n, mt, eos, k, cap):
         raise ValueError(f"myers_pairs: codes must be contiguous uint8 "
                          f"[>= n], got {codes.dtype} {tuple(codes.shape)}, "
                          f"n {n}")
-    if mt.eq.device != codes.device or mt.eq.dtype != torch.int32 \
-            or tuple(mt.eq.shape) != (256, mt.nw):
-        raise ValueError("myers_pairs: eq must be int32 [256, nw] on the "
-                         "codes' device")
-    if not 1 <= mt.nw <= MAX_WORDS:
-        raise ValueError(f"myers_pairs: {mt.nw} words, the kernel keeps "
-                         f"at most {MAX_WORDS}")
+    if mt.nw < 1 or [tuple(g.shape) for g in mt.groups] != [
+            (256, min(MAX_WORDS, mt.nw - w))
+            for w in range(0, mt.nw, MAX_WORDS)] or any(
+            g.device != codes.device or g.dtype != torch.int32
+            or not g.is_contiguous() for g in mt.groups):
+        raise ValueError(f"myers_pairs: eq must be int32 [256, nw] on the "
+                         f"codes' device, in groups of {MAX_WORDS} words")
     lens = mt.words_np[:, 2:]
     pair = mt.words_np[:, 1] >= 0
     if lens[:, 0].max() > MAX_FIELD or lens[pair, 1].max(initial=0) \
@@ -246,11 +255,13 @@ def myers_pairs(codes: torch.Tensor, n: int, mt: MyersTables, eos: int,
 
     ``codes`` uint8 [>= n]; ``mt`` a :class:`MyersTables` on the same
     device.  On a CUDA tensor this launches ``csrc/myers.cu`` on the
-    current stream and counts the launch in ``launch.myers_pairs``; on a
-    CPU tensor it is :func:`myers_pairs_ref`.  Either counts ``n`` in
-    ``scan.positions``.  Nothing here waits for the device."""
+    current stream, once per group of :data:`MAX_WORDS` words (every
+    launch into one row), and counts each launch in
+    ``launch.myers_pairs``; on a CPU tensor it is :func:`myers_pairs_ref`.
+    Either counts ``n`` in ``scan.positions`` per group.  Nothing here
+    waits for the device."""
     if codes.device.type == "cpu":
-        trace.count("scan.positions", n)
+        trace.count("scan.positions", n * -(-mt.nw // MAX_WORDS))
         return myers_pairs_ref(codes, n, mt, eos, k, cap, segc)
     if codes.device.type != "cuda":
         raise ValueError(f"myers_pairs: unsupported device {codes.device}")
@@ -267,12 +278,15 @@ def myers_pairs(codes: torch.Tensor, n: int, mt: MyersTables, eos: int,
     out = torch.zeros(1 + 2 * cap, dtype=torch.int32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        rc = lib.sat_myers_pairs(
-            codes.data_ptr(), n, mt.eq.data_ptr(),
-            words.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), mt.nw,
-            eos, k, segc, halo, out.data_ptr(), cap, stream)
-    if rc != 0:
-        raise RuntimeError(f"myers_pairs launch failed: cudaError_t {rc}")
-    trace.count("launch.myers_pairs")
-    trace.count("scan.positions", n)
+        for g, eq in enumerate(mt.groups):
+            part = words[g * MAX_WORDS:(g + 1) * MAX_WORDS]
+            rc = lib.sat_myers_pairs(
+                codes.data_ptr(), n, eq.data_ptr(),
+                part.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                len(part), eos, k, segc, halo, out.data_ptr(), cap, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"myers_pairs launch failed: cudaError_t {rc}")
+            trace.count("launch.myers_pairs")
+            trace.count("scan.positions", n)
     return out

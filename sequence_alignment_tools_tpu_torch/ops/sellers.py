@@ -14,14 +14,21 @@ mindist <= k.  Routes:
   the port's copy) for small scans, as the JAX scanner routes them;
 - device, preferred: the Myers bit-vector kernel
   (:func:`.cuda.myers.myers_pairs`) whenever every pattern fits a 31-bit
-  field, is longer than k, and the packed words fit the kernel's
-  registers (indels only: it is the Levenshtein recurrence);
+  field and is longer than k, one launch per group of 32 packed words
+  (indels only: it is the Levenshtein recurrence);
 - device, otherwise: the Sellers row-DP kernel
   (:func:`.cuda.sellers.sellers_scan`);
 - under a mesh (``mesh``, attached by the model layer) :meth:`scan` runs
   the Sellers kernel per position shard
   (:func:`..parallel.shard.sharded_sellers_scan`), as the JAX scanner
   does; Myers is not sharded.
+
+The kernels index their text with 32-bit offsets.  A scan of more than
+``_KEDIT_BLOCK`` positions (a whole genome) runs in blocks: each block of
+end positions is a view of the one device copy of the text
+(:func:`.conv_scan.device_form`) that starts a halo of Lmax + k - 1
+positions before its first end, and a candidate belongs to the block that
+holds its end; caps and the one larger re-launch stay per block.
 
 Both kernels emit every hitting pattern at every boundary, so the JAX
 scanner's escapes (``rescan_boundaries``), its TPU layouts
@@ -63,6 +70,10 @@ class SellersScanner:
     # the true count, stickily
     _my_cap = 1 << 12
     _sel_cap = 1 << 12
+    # the most end positions one launch covers in a blocked scan, a
+    # multiple of 16 (a block's view of the text stays 16-byte aligned) and
+    # with its halo well under the kernels' 2^31
+    _KEDIT_BLOCK = 1 << 30
 
     # optional per-scan progress callback (frac in (0, 1])
     progress = None
@@ -145,26 +156,27 @@ class SellersScanner:
     def myers_available(self, n: int) -> bool:
         """Whether the Myers kernel takes this scan: the Levenshtein
         recurrence (indels), every pattern at most 31 long (one field of a
-        32-bit word) and longer than k (the EOS reset's hit gate), and the
-        packed words within the kernel's register budget.  The JAX
-        scanner's other gates (backend, n, alphabet, P <= 30 for its
-        32-bit hit mask) were TPU layout bounds: the CUDA kernel indexes
-        its accept words by code and emits (position, pattern) pairs."""
-        from .cuda.myers import MAX_FIELD, MAX_WORDS
+        32-bit word) and longer than k (the EOS reset's hit gate).  Any
+        number of words (one launch per group of ``cuda.myers.MAX_WORDS``)
+        and any n (past ``_KEDIT_BLOCK`` positions the scan is blocked).
+        The JAX scanner's other gates (backend, n, alphabet, P <= 30 for
+        its 32-bit hit mask) were TPU layout bounds: the CUDA kernel
+        indexes its accept words by code and emits (position, pattern)
+        pairs."""
+        from .cuda.myers import MAX_FIELD
 
         t = self.tables
         if not self.indels or t.P == 0 or n < 1:
             return False
-        if int(t.lengths.max()) > MAX_FIELD \
-                or int(t.lengths.min()) <= self.k:
-            return False
-        return self._myers_t().nw <= MAX_WORDS
+        return int(t.lengths.max()) <= MAX_FIELD \
+            and int(t.lengths.min()) > self.k
 
     def kernel_available(self, n: int) -> bool:
         """Whether a device kernel takes this scan: the Myers kernel, or
         else the Sellers kernel (any number of patterns, one launch per
         block of ``cuda.sellers.PATTERN_BLOCK``; any pattern length; k up
-        to ``cuda.sellers.MAX_K``)."""
+        to ``cuda.sellers.MAX_K``).  Neither looks at n: past
+        ``_KEDIT_BLOCK`` positions the scan is blocked, not refused."""
         if self.myers_available(n):
             return True
         from .cuda.sellers import kernel_takes
@@ -187,20 +199,46 @@ class SellersScanner:
 
     def _kind(self, n: int) -> str:
         if self.myers_available(n):
-            self._route("Myers bit-vector k-edit CUDA kernel (myers.cu)"
-                        if self.device.type == "cuda"
-                        else "Myers bit-vector k-edit scan (plain PyTorch "
-                        "on the CPU)")
+            self._route(("Myers bit-vector k-edit CUDA kernel (myers.cu)"
+                         if self.device.type == "cuda"
+                         else "Myers bit-vector k-edit scan (plain PyTorch "
+                         "on the CPU)") + self._blocked_note(n))
             return "myers"
         if not self.kernel_available(n):
             raise NotImplementedError(
                 f"no k-edit kernel takes P={self.tables.P}, "
                 f"Lmax={self.tables.Lmax}, k={self.k}")
-        self._route("Sellers row-DP k-edit CUDA kernel (sellers.cu)"
-                    if self.device.type == "cuda"
-                    else "Sellers row-DP k-edit scan (plain PyTorch on the "
-                    "CPU)")
+        self._route(("Sellers row-DP k-edit CUDA kernel (sellers.cu)"
+                     if self.device.type == "cuda"
+                     else "Sellers row-DP k-edit scan (plain PyTorch on the "
+                     "CPU)") + self._blocked_note(n))
         return "sellers"
+
+    def _blocks(self, n: int) -> list[tuple[int, int, int]]:
+        """(view start, first end, end) of each block of a scan over n
+        positions: the whole text, or blocks of ``_KEDIT_BLOCK`` end
+        positions [first end, end) whose views start a halo of
+        Lmax + k - 1 positions (rounded up to 16) before their first end."""
+        step = self._KEDIT_BLOCK
+        if n <= step:
+            return [(0, 0, n)]
+        halo = -(-(int(self.tables.Lmax) + self.k - 1) // 16) * 16
+        return [(max(lo - halo, 0), lo, min(lo + step, n))
+                for lo in range(0, n, step)]
+
+    def _blocked_note(self, n: int) -> str:
+        blocks = len(self._blocks(n))
+        return (f", blocked: {blocks} blocks of at most {self._KEDIT_BLOCK}"
+                " positions" if blocks > 1 else "")
+
+    @staticmethod
+    def _rebase(found, view: int, lo: int):
+        """A block's (pos, pids, dist) in the whole text's positions,
+        int64, the ends in its halo (another block's) left out."""
+        pos, pids, dist = found
+        keep = pos >= lo - view
+        return (pos[keep] + view, pids[keep],
+                None if dist is None else dist[keep])
 
     def _cap(self, kind: str, n: int) -> int:
         """The fetched row's cap: the sticky cap, and at least one
@@ -232,23 +270,55 @@ class SellersScanner:
                     if kind == "sellers" else None)
             return pos, pids, dist
 
+    def _launches(self, kind: str, codes, pinned: bool = False):
+        """Dispatch the launches of a scan of one code array, in order:
+        yields (text, cap, view, lo, row) per block (:meth:`_blocks`),
+        ``text`` the block's view of the one device copy and ``row`` its
+        unread row (with ``pinned``, the (pinned host row, event) pair of
+        :meth:`.conv_scan.ConvScanner._to_host`)."""
+        codes_dev = device_form(codes, self.device)
+        blocks = self._blocks(len(codes))
+        if len(blocks) > 1:
+            trace.count("scan.blocks", len(blocks))
+        for view, lo, hi in blocks:
+            text = codes_dev[view:hi]
+            with trace.span("scan.dispatch"):
+                cap = self._cap(kind, hi - view)
+                row = self._dispatch(kind, text, hi - view, cap)
+                if pinned:
+                    row = ConvScanner._to_host(row)
+            yield text, cap, view, lo, row
+
+    def _found(self, kind: str, row, text, cap: int, view: int, lo: int):
+        """A block's fetched row as (pos, pids, dist) in the whole text's
+        positions (:meth:`_decode`, :meth:`_rebase`)."""
+        return self._rebase(self._decode(kind, row, text, len(text), cap),
+                            view, lo)
+
+    @staticmethod
+    def _joined(found):
+        pos, pids, dist = zip(*found)
+        return (np.concatenate(pos), np.concatenate(pids),
+                None if dist[0] is None else np.concatenate(dist))
+
     def _run(self, codes, kind: str):
-        n = len(codes)
-        if n == 0:
+        if len(codes) == 0:
             z = np.zeros(0, np.int64)
             return z, z, z
-        codes_dev = device_form(codes, self.device)
-        with trace.span("scan.dispatch"):
-            cap = self._cap(kind, n)
-            row = self._dispatch(kind, codes_dev, n, cap)
-        with trace.span("scan.wait"):
-            row = row.cpu().numpy()
-        return self._decode(kind, row, codes_dev, n, cap)
+        # every block dispatched before the first row is read
+        found = []
+        for text, cap, view, lo, row in list(self._launches(kind, codes)):
+            with trace.span("scan.wait"):
+                row = row.cpu().numpy()
+            found.append(self._found(kind, row, text, cap, view, lo))
+        return self._joined(found)
 
     def scan_pairs(self, codes: np.ndarray):
         """(ends [M] int64, pids [M] int64): the full candidate set
         {(b, p): mindist(b, p) <= k}, unordered, through the Myers kernel
-        when it takes the scan, else the Sellers kernel."""
+        when it takes the scan, else the Sellers kernel; past
+        ``_KEDIT_BLOCK`` positions in blocks (:meth:`_blocks`), the ends
+        in the whole text's positions."""
         pos, pids, _ = self._run(codes, self._kind(len(codes)))
         if self.progress:
             self.progress(1.0)
@@ -256,38 +326,40 @@ class SellersScanner:
 
     def scan_pairs_stream(self, blocks, depth: int = 32):
         """Pipelined :meth:`scan_pairs` over an iterator of code arrays:
-        block i + 1 ... i + depth are dispatched before block i's row is
-        read; each row is copied to pinned host memory without blocking
-        and an event marks its completion.  Yields (i, ends, pids) in
-        order."""
+        the arrays after array i are dispatched, up to ``depth`` launches
+        in flight, before array i's rows are read; each row is copied to
+        pinned host memory without blocking and an event marks its
+        completion.  An array past ``_KEDIT_BLOCK`` positions is scanned
+        in blocks (:meth:`_blocks`), a launch each.  Yields (i, ends,
+        pids) in order."""
         depth = max(int(depth), 1)
         pending = deque()
+        inflight = 0
         for i, codes in enumerate(blocks):
-            n = len(codes)
-            if n == 0:
-                pending.append((i, None, None, None, None, 0, 0))
-            else:
-                kind = self._kind(n)
-                dev = device_form(codes, self.device)
-                with trace.span("scan.dispatch"):
-                    cap = self._cap(kind, n)
-                    host, ev = ConvScanner._to_host(
-                        self._dispatch(kind, dev, n, cap))
-                pending.append((i, kind, host, ev, dev, n, cap))
-            if len(pending) >= depth:
-                yield self._drain(pending.popleft())
+            kind = self._kind(len(codes)) if len(codes) else None
+            launches = [] if kind is None else list(
+                self._launches(kind, codes, pinned=True))
+            pending.append((i, kind, launches))
+            inflight += max(len(launches), 1)
+            while inflight >= depth:
+                inflight -= max(len(pending[0][2]), 1)
+                yield self._drain(*pending.popleft())
         while pending:
-            yield self._drain(pending.popleft())
+            yield self._drain(*pending.popleft())
 
-    def _drain(self, item):
-        i, kind, host, ev, dev, n, cap = item
-        if kind is None:
+    def _drain(self, i: int, kind, launches):
+        """(i, ends, pids) of one array's launches, their rows read."""
+        if not launches:
             z = np.zeros(0, np.int64)
             return i, z, z
-        if ev is not None:
-            with trace.span("scan.wait"):
-                ev.synchronize()
-        pos, pids, _ = self._decode(kind, host.numpy(), dev, n, cap)
+        found = []
+        for text, cap, view, lo, (host, ev) in launches:
+            if ev is not None:
+                with trace.span("scan.wait"):
+                    ev.synchronize()
+            found.append(self._found(kind, host.numpy(), text, cap, view,
+                                     lo))
+        pos, pids, _ = self._joined(found)
         return i, pos + 1, pids
 
     def scan(self, codes: np.ndarray):
@@ -316,10 +388,10 @@ class SellersScanner:
                 raise NotImplementedError(
                     f"no k-edit kernel takes P={self.tables.P}, "
                     f"Lmax={self.tables.Lmax}, k={self.k}")
-            self._route("Sellers row-DP k-edit CUDA kernel (sellers.cu)"
-                        if self.device.type == "cuda"
-                        else "Sellers row-DP k-edit scan (plain PyTorch on "
-                        "the CPU)")
+            self._route(("Sellers row-DP k-edit CUDA kernel (sellers.cu)"
+                         if self.device.type == "cuda"
+                         else "Sellers row-DP k-edit scan (plain PyTorch on "
+                         "the CPU)") + self._blocked_note(len(codes)))
             pos, pids, dist = self._run(codes, "sellers")
             ends = pos + 1
         with trace.span("scan.decode"):

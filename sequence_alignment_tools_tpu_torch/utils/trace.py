@@ -23,7 +23,8 @@ The names in use:
 
 - spans: ``io.pattern_set``; ``model.init``, ``model.tables``,
   ``model.gate``, ``model.extend``, ``model.dedup``, ``model.emit``,
-  ``model.hits``, ``model.close``; ``scan.tables``, ``scan.upload``,
+  ``model.tail`` (a round of the filter engine's batch / cluster / verify
+  tail), ``model.hits``, ``model.close``; ``scan.tables``, ``scan.upload``,
   ``scan.dispatch``, ``scan.wait``, ``scan.decode``, ``scan.redispatch``;
 - counters: ``launch.<wrapper>`` per kernel launch of the six CUDA
   wrappers; ``scan.positions``, the text positions each call of a
@@ -31,9 +32,12 @@ The names in use:
   ``myers_pairs``, and ``sellers_scan`` per block of patterns; on the CPU
   their plain versions); ``scan.rescore_retry``, each overflow retry of
   the fused route served from a kept filter occupancy (the rescore
-  alone); ``upload.bytes``, the bytes of text and tables
-  put on a scanner's device; ``cand.extend_in`` and ``cand.extend_ok``,
-  the seed candidates handed to the host extension and those that extend.
+  alone); ``scan.blocks``, the blocks of a k-edit scan past
+  ``SellersScanner._KEDIT_BLOCK`` positions; ``upload.bytes``, the bytes
+  of text and tables put on a scanner's device; ``cand.extend_in`` and
+  ``cand.extend_ok``, the seed candidates handed to the host extension and
+  those that extend; ``cand.verify_in`` and ``cand.verify_ok``, the
+  filter engine's clusters handed to the verify and those it keeps.
 """
 
 from __future__ import annotations

@@ -132,10 +132,11 @@ def test_eqbits_layout_matches_jax():
                             headers=["e1"]), wc=True, textn=False)
     assert myers_eqbits(pt) == jax_myers_eqbits(jt)
     mt = myers_tables(pt)
+    eq = torch.cat(mt.groups, 1)
     eqwords, wordspec, lens, classes = jax_myers_eqbits(jt)
     for w, row in enumerate(eqwords):
         for ci, c in enumerate(classes):
-            assert int(mt.eq[c, w]) == row[ci]
+            assert int(eq[c, w]) == row[ci]
         assert tuple(mt.words_np[w, :2]) == wordspec[w]
 
 

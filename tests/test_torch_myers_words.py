@@ -100,7 +100,7 @@ def kernel_model(codes, n, mt, eos, k, segc=None):
     """(true count, {(pos, pid)}) as ``csrc/myers.cu`` computes them."""
     words = mt.words_np
     c = word_constants(words, k)
-    eq_s = staged_eq(mt.eq.numpy(), c)
+    eq_s = staged_eq(np.concatenate([g.numpy() for g in mt.groups], 1), c)
     halo0 = mt.Lmax + k
     segc = segc or myers_segc(n, halo0)
     segc = -(-segc // 16) * 16
