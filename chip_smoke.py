@@ -97,7 +97,11 @@ the same paths over a device mesh) at full size and checks their output:
     2^24 prefix, then over 2^28, with a ``torch.profiler`` breakdown of
     both; an older commit's census kernel timed beside this one on both
     seed sets, and the older commit's ``gate_slots`` beside this one,
-    when ``PARENT_DIR`` holds their sources;
+    when ``PARENT_DIR`` holds their sources; then
+    (:func:`prefix_census_phase`) 34,255 peptides of 7 to 45 residues over
+    206,000,000 residues with I read as L: the census keyed by prefixes
+    against the pattern-blocked route, equal hits, both timed, and the
+    kernel's row against ``scan_slots_ref`` at these shapes;
 13. pcr_match: ``pairs_stream`` of 10 primer pairs over the resident 2^28
     database at k = 0, equal to ``pairs``;
 14. peptide_scan's path: the six-frame translation of the 2^28 database
@@ -1638,6 +1642,114 @@ def swissprot_like(path, entries, seed):
     if compress_seq(["-i", path, "-n", "true"]):
         raise RuntimeError("compress_seq failed")
     return sum(map(len, seqs)), dups, conts
+
+
+def prefix_census_phase(smi):
+    """The census keyed by prefixes at Swiss-Prot's size: 206,000,000
+    residues at Swiss-Prot's composition with I read as L (one code, as
+    ``peptide_scan -M 2`` maps them) and an end of sequence about every
+    361, and 34,255 peptides of 7 to 45 residues (7 plus a geometric
+    length, mean about 15) drawn from it; longer than the register holds
+    (14 codes at 21), so ``ConvScanner.scan`` takes the prefix census
+    (one ``seed_slots.cu`` launch).  Against the pattern-blocked route
+    (17 ``scan_filter.cu`` passes), both on the card in one session:
+    equal hits, each route's wall with its tables built (first call) and
+    after (median of 3), launches, the census kernel's row against
+    ``scan_slots_ref`` on the card (at its full cap, and at cap 1), and
+    the kernel alone (CUDA events)."""
+    import torch
+
+    from sequence_alignment_tools_tpu_torch.io.database import SeqDB
+    from sequence_alignment_tools_tpu_torch.ops.conv_scan import (
+        ConvScanner,
+        device_form,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.cuda.slots import (
+        scan_slots,
+        scan_slots_ref,
+    )
+    from sequence_alignment_tools_tpu_torch.ops.tables import build_tables
+    from sequence_alignment_tools_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(SEED + 22)
+    n = 206_000_000
+    table = b"ACGT\n" + bytes(c for c in b"DEFHIKLMNPQRSVWY")
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    freq = np.array([8.3, 1.4, 5.5, 6.8, 3.9, 7.1, 2.3, 5.9, 5.8, 9.7, 2.4,
+                     4.1, 4.7, 3.9, 5.5, 6.6, 5.3, 6.9, 1.1, 2.9])
+    lut = np.zeros(256, np.uint8)
+    for code, ch in enumerate(table):
+        lut[ch] = code
+    lut[ord("I")] = lut[ord("L")]
+    codes = lut[aa[rng.choice(20, n, p=freq / freq.sum())]]
+    codes[rng.integers(0, n, n // 361)] = 4
+    db = SeqDB(codes=codes, table=table, entry_starts=np.array([0]),
+               entry_lengths=np.array([n]), headers=["swissprot_like"])
+    pats = []
+    while len(pats) < 34_255:
+        ln = min(7 + int(rng.geometric(1 / 9)) - 1, 45)
+        at = int(rng.integers(0, n - 45))
+        win = codes[at : at + ln]
+        if (win != 4).all():
+            pats.append(bytes(table[c] for c in win).decode())
+    tables = build_tables(literal_pattern_set(pats), db, wc=False,
+                          textn=False)
+    sc = ConvScanner(tables, k=0, device="cuda")
+    sc.use_host = False
+    key = sc._census_key()
+    if key is None or not sc.census_serves(codes):
+        raise AssertionError("the peptide-shaped set left the prefix census")
+    blocked = ConvScanner(tables, k=0, device="cuda")
+    blocked.use_host = False
+    device_form(codes, sc.device)
+    walls = {}
+    launches = {}
+    out = {}
+    for name, fn in (("prefix census", lambda: list(sc.scan(codes))),
+                     ("pattern-blocked",
+                      lambda: list(blocked._scan_pblocked(codes)))):
+        ran = Launches()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        first = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in ran.all().items() if v}
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            reps.append(time.perf_counter() - t0)
+        walls[name] = (first, statistics.median(reps))
+    got, want = out["prefix census"], out["pattern-blocked"]
+    if got != want or len(got) < len(pats):
+        raise AssertionError(f"prefix census differs from the "
+                             f"pattern-blocked route: {len(got)} vs "
+                             f"{len(want)} hits")
+    mt = sc._mer_dev()
+    dev_codes = device_form(codes, sc.device)
+    cap = sc._slot_cap
+    # the kernel against its plain twin at these shapes: 21 codes, keys
+    # of 14 codes (rolled codes near 2^61.5), 8 classes; then cap 1
+    want_row = scan_slots_ref(dev_codes, n, mt, cap)
+    check_slots(f"prefix census scan_slots check n={n}, {mt.P} entries, "
+                f"classes {list(mt.lens)}", scan_slots(dev_codes, n, mt, cap),
+                want_row, cap, cap)
+    check_slots("prefix census scan_slots check cap 1 (overflow)",
+                scan_slots(dev_codes, n, mt, 1), want_row, 1, cap)
+    del want_row
+    k_ms = cuda_ms(lambda: scan_slots(dev_codes, n, mt, cap))
+    ins = trace.total("census.prefix_in")
+    oks = trace.total("census.prefix_ok")
+    log(f"prefix census at Swiss-Prot size (n={n}, {len(pats)} peptides, "
+        f"Lmax {tables.Lmax}, key {key}, {len(mt.lens)} classes) on {smi}: "
+        f"{len(got)} hits == pattern-blocked; walls (first call with "
+        f"tables, then median of 3): prefix census "
+        f"{walls['prefix census'][0]:.3f} / {walls['prefix census'][1]:.3f}"
+        f" s, pattern-blocked {walls['pattern-blocked'][0]:.3f} / "
+        f"{walls['pattern-blocked'][1]:.3f} s; launches {launches}; "
+        f"seed_slots kernel {k_ms:.4f} ms (CUDA events, median); "
+        f"census.prefix_ok / prefix_in {oks} / {ins}")
+    del sc, blocked, dev_codes, mt
+    torch.cuda.empty_cache()
 
 
 def scale_phase(tmp, smi):
@@ -4022,6 +4134,9 @@ def main():
     profile("xk1 main path, engine_hits_arrays, n=2^28 resident",
             lambda: mx.engine_hits_arrays(), 3)
     del main_dev, xslots, xsurv, g_ref, mx, xsc
+
+    # 11b. the census keyed by prefixes at Swiss-Prot's size
+    prefix_census_phase(smi)
 
     # 12. pcr_match: the pair join over the resident database
     from sequence_alignment_tools_tpu_torch.apps.pcr_match import (

@@ -28,12 +28,18 @@ with ``W`` the conv weights (EOS poison under ``poison_eos``).
    number of patterns.  On a CUDA device :func:`.cuda.slots.scan_slots`
    (the kernel ``seed_slots.cu``); on the CPU the native threaded
    mer-hash census (``native/shift_and.cpp::sat_mer_scan``), or, with the
-   host machines off, the plain version of ``scan_slots``.  The JAX
-   scanner ran this rung on the host only;
+   host machines off, the plain version of ``scan_slots``.  A set whose
+   longest pattern the int64 register cannot hold takes the device census
+   alone, keyed by prefixes: a longer pattern is entered under its first
+   K codes and its candidates verified on the host after the fetch
+   (:meth:`ConvScanner._verify_prefix`), while no pattern passes
+   ``_PREFIX_LMAX`` codes and no key is shared by more than
+   ``_PREFIX_CHAIN`` patterns.  The JAX scanner ran this rung on the host
+   only, for sets the register holds whole;
 5. pattern-blocked, for pattern sets past ``_PBLOCK`` that the census
-   does not take (wildcards, gapped-seed templates): one fused pass per
-   ``_PBLOCK`` patterns over the same resident text, all dispatched
-   before any row is fetched;
+   does not take (wildcards, gapped-seed templates, prefix sets past the
+   prefix bounds): one fused pass per ``_PBLOCK`` patterns over the same
+   resident text, all dispatched before any row is fetched;
 6. the fused device route for every other scan, at any length, pattern
    length and alphabet: :func:`.cuda.scan_kernel.scan_hits` (CUDA filter
    kernel, compaction, exact rescore) in one packed row per scan, with
@@ -186,7 +192,8 @@ class ConvScanner:
         self._device_arg = device
         self._dt = None
         self._host_scanner = None
-        self._radix_ok_c = None
+        self._literal_c = None
+        self._prefix_ok_c = None
         self._routes_done = None
         self._gt_dev = None
         self._by_len_c = None
@@ -666,38 +673,84 @@ class ConvScanner:
     def _radix_eligible(self) -> bool:
         """Literal (wildcard-free) patterns whose codes fit an int64
         base-alpha register (the radix census's precondition)."""
-        if self._radix_ok_c is not None:
-            return self._radix_ok_c
-        t = self.tables
-        ok = t.Lmax * np.log2(max(t.alpha, 2)) < 62
-        if ok:
+        return self._census_key() is None and self._literal()
+
+    def _literal(self) -> bool:
+        """No wildcard or unmapped code in any pattern's live columns."""
+        if self._literal_c is None:
+            t = self.tables
             cols = np.arange(t.pat_codes.shape[1])[None, :]
             live = cols < t.lengths[:, None]
-            ok = not bool((np.asarray(t.pat_codes) < 0)[live].any())
-        self._radix_ok_c = ok
-        return ok
+            self._literal_c = not bool(
+                (np.asarray(t.pat_codes) < 0)[live].any())
+        return self._literal_c
+
+    def _census_key(self) -> int | None:
+        """The longest census key K, K * log2(alpha) < 62, when the int64
+        base-alpha register cannot hold the longest pattern whole; None
+        when it can.  A pattern longer than K is keyed by its first K
+        codes (:meth:`_by_len`)."""
+        t = self.tables
+        bits = np.log2(max(t.alpha, 2))
+        if t.Lmax * bits < 62:
+            return None
+        key = int(62 // bits)
+        while key * bits >= 62:
+            key -= 1
+        return key
+
+    # The prefix census's bounds.  Every occurrence of a key in the text
+    # is a candidate of each pattern that shares the key, and the host
+    # verify compares Lmax - K codes a candidate: past these a set keeps
+    # the pattern-blocked rung, whose cost grows with neither.
+    _PREFIX_LMAX = 256
+    _PREFIX_CHAIN = 64
+
+    def _prefix_keyable(self) -> bool:
+        """Whether the census may key this set by prefixes: its longest
+        pattern at most ``_PREFIX_LMAX`` codes, and at most
+        ``_PREFIX_CHAIN`` patterns under any one key of class K."""
+        if self._prefix_ok_c is None:
+            ok = self.tables.Lmax <= self._PREFIX_LMAX
+            if ok:
+                entries = self._by_len()[self._census_key()]
+                _u, chain = np.unique([c for c, _ in entries],
+                                      return_counts=True)
+                ok = chain.max() <= self._PREFIX_CHAIN
+            self._prefix_ok_c = bool(ok)
+        return self._prefix_ok_c
 
     # -- the census (dense exact seeds, huge literal pattern sets) -----------
 
     def _census_eligible(self, n: int) -> bool:
         """The census rung's routing test: an exact scan of at least 2^18
-        positions whose seeds are dense (the two-level filter would fire
-        on nearly every microblock) or number more than ``_PBLOCK``, over
-        literal patterns."""
-        est = self._expected_hits(n)
-        nmb = max(n // self._MB, 1)
-        return (self.k == 0 and n >= (1 << 18)
-                and (est * 4 >= nmb or self.tables.P > self._PBLOCK)
-                and self._radix_eligible())
+        positions over literal patterns, either held whole by the register
+        and dense (the two-level filter would fire on nearly every
+        microblock) or more than ``_PBLOCK``, or past the register, more
+        than ``_PBLOCK`` and within the prefix bounds
+        (:meth:`_prefix_keyable`) on a device census: the native and numpy
+        censuses key whole patterns only."""
+        if not (self.k == 0 and n >= (1 << 18) and self._literal()):
+            return False
+        if self._census_key() is None:
+            return (self.tables.P > self._PBLOCK
+                    or self._expected_hits(n) * 4 >= max(n // self._MB, 1))
+        return (self.tables.P > self._PBLOCK and self.census_on_device()
+                and self._prefix_keyable())
 
     def _by_len(self):
-        """{length: [(code, pid0)]}: the base-alpha code of every pattern,
-        by pattern length, built once per scanner."""
+        """{class: [(code, pid0)]}: the base-alpha code of every pattern,
+        by pattern length, built once per scanner.  Under a census key K
+        (:meth:`_census_key`) a pattern longer than K falls in class K
+        under the code of its first K codes."""
         if self._by_len_c is None:
             t = self.tables
             alpha = t.alpha
             by_len: dict[int, list] = {}
             lens = t.lengths.astype(np.int64)
+            key = self._census_key()
+            if key is not None:
+                lens = np.minimum(lens, key)
             pc = np.asarray(t.pat_codes, np.int64)
             for L in np.unique(lens):
                 L = int(L)
@@ -710,12 +763,13 @@ class ConvScanner:
         return self._by_len_c
 
     def _mer_tables(self):
-        """{length: (keys, head, enext, epid, tsize, bloom, bloom_bits,
-        head4, enext4, bit4)}: one open-addressing hash table per pattern
-        length (4x load-factor headroom, duplicate codes chained), built
-        once per scanner.  The native census and the device census
-        (:class:`.cuda.slots.MerTables`) probe the same tables; the bloom
-        prefilter and the direct-address sidecar serve the native one."""
+        """{class: (keys, head, enext, epid, tsize, bloom, bloom_bits,
+        head4, enext4, bit4)}: one open-addressing hash table per class
+        of :meth:`_by_len` (4x load-factor headroom, duplicate codes
+        chained), built once per scanner.  The native census and the
+        device census (:class:`.cuda.slots.MerTables`) probe the same
+        tables; the bloom prefilter and the direct-address sidecar serve
+        the native one."""
         if self._mer_tables_c is not None:
             return self._mer_tables_c
         t = self.tables
@@ -931,7 +985,9 @@ class ConvScanner:
         """(ends, pids0) int64 arrays of every exact hit through
         :func:`.cuda.slots.scan_slots` on the scanner's device.  The true
         count comes back first; an overflow is one re-launch with a cap
-        past it.  Only the live part of the row is fetched."""
+        past it.  Only the live part of the row is fetched; under a
+        census key its prefix candidates are verified
+        (:meth:`_verify_prefix`)."""
         from .cuda.slots import scan_slots
 
         dev = device_form(codes, self.device)
@@ -956,20 +1012,55 @@ class ConvScanner:
         with trace.span("scan.decode"):
             starts = starts.astype(np.int64)
             pids = pids.astype(np.int64)
+            key = self._census_key()
+            if key is not None:
+                starts, pids = self._verify_prefix(codes, n, starts, pids,
+                                                   key)
             if sort:
                 order = np.lexsort((pids, starts))
                 starts, pids = starts[order], pids[order]
             return starts + self.tables.lengths[pids].astype(np.int64), pids
 
+    _VERIFY_ELEMS = 1 << 22
+
+    def _verify_prefix(self, codes, n: int, starts, pids, key: int):
+        """The census candidates ``(starts, pids)`` less those of patterns
+        longer than ``key`` whose codes past the key differ from the text
+        at ``start + key``, or run past ``n``: the patterns' tails,
+        padded to ``Lmax - key`` with -1 (which any text passes), compared
+        with the host text in chunks of about ``_VERIFY_ELEMS`` codes.  An
+        EOS in the window fails the compare.  Counts ``census.prefix_in``
+        (candidates of patterns longer than the key) and
+        ``census.prefix_ok`` (those kept)."""
+        t = self.tables
+        text = np.asarray(codes)
+        tails = np.asarray(t.pat_codes)[:, key:]
+        cand = np.flatnonzero(t.lengths[pids] > key)
+        keep = np.ones(len(pids), bool)
+        offs = np.arange(key, t.Lmax)
+        step = max(self._VERIFY_ELEMS // len(offs), 1)
+        for c0 in range(0, len(cand), step):
+            sel = cand[c0 : c0 + step]
+            at = starts[sel, None] + offs
+            want = tails[pids[sel]]
+            got = text[np.minimum(at, n - 1)]
+            keep[sel] = ((got == want) & (at < n) | (want < 0)).all(axis=1)
+        trace.count("census.prefix_in", len(cand))
+        trace.count("census.prefix_ok", int(keep[cand].sum()))
+        return starts[keep], pids[keep]
+
     def _scan_radix_arrays(self, codes, n: int, sort: bool = True,
                            gate=None):
         """(ends, pids0) int64 arrays of every exact hit, in (window-start,
         pattern) order unless ``sort`` is False: the device census, or on
-        the CPU the native census (with its inline ``gate``), or numpy."""
+        the CPU the native census (with its inline ``gate``), or numpy.
+        Only the device census takes a prefix-keyed set."""
         t = self.tables
         if self.census_on_device():
-            self._route("census kernel (%d patterns; %s%s)" % (
-                t.P, "CUDA: seed_slots.cu" if self.device.type == "cuda"
+            key = self._census_key()
+            self._route("census kernel (%d patterns%s; %s%s)" % (
+                t.P, "" if key is None else ", prefix-keyed at %d" % key,
+                "CUDA: seed_slots.cu" if self.device.type == "cuda"
                 else "plain PyTorch, CPU", self._unsharded()))
             return self._census_device(codes, n, sort)
         native = self._mer_native(codes, n, sort=sort, gate=gate)
@@ -1039,11 +1130,12 @@ class ConvScanner:
         of ``PrimerMatchModel._census_gate``), the device census
         ``ext_gate`` (an :class:`..gate.ExtendGate`), run by
         ``gate_slots`` over the slot list on the device before anything is
-        fetched."""
+        fetched.  A prefix-keyed set takes no gate (the slot gate anchors
+        on a seed's whole length)."""
         if not self.census_serves(codes):
             return None
         n = len(codes)
-        if (ext_gate is not None and self.census_on_device()
+        if (ext_gate is not None and self._slots_ok()
                 and self.gate_alphabet_ok()):
             _i, ends, pids = next(self._gated_stream(
                 [codes], ext_gate, ext_gate.indels, ext_gate.t.k, 1, True))

@@ -33,8 +33,11 @@ The names in use:
   their plain versions); ``scan.rescore_retry``, each overflow retry of
   the fused route served from a kept filter occupancy (the rescore
   alone); ``scan.blocks``, the blocks of a k-edit scan past
-  ``SellersScanner._KEDIT_BLOCK`` positions; ``upload.bytes``, the bytes
-  of text and tables put on a scanner's device; ``cand.extend_in`` and
+  ``SellersScanner._KEDIT_BLOCK`` positions; ``census.prefix_in`` and
+  ``census.prefix_ok``, the census candidates of patterns keyed by a
+  prefix (longer than the register holds) handed to the host verify and
+  those it keeps (``ConvScanner._verify_prefix``); ``upload.bytes``, the
+  bytes of text and tables put on a scanner's device; ``cand.extend_in`` and
   ``cand.extend_ok``, the seed candidates handed to the host extension and
   those that extend; ``cand.verify_in`` and ``cand.verify_ok``, the
   filter engine's clusters handed to the verify and those it keeps.

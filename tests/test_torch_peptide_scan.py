@@ -8,12 +8,16 @@ protein database with planted peptides and substituted copies, and a DNA
 database with the peptides' codons planted on both strands.  The JAX apps run on their host
 route; the port's run on the native host machine (``SAT_HOST_SCAN=1``) and
 through its device route's plain PyTorch versions (``SAT_HOST_SCAN=0``).
-One case of each tool goes through the port's dispatcher.
+One case of each tool goes through the port's dispatcher.  One case
+maps 2,100 peptides, past the register's 14 residues, over a database of
+more than 2^18 residues: the port's device route takes the census keyed
+by prefixes.
 """
 
 import os
 import sys
 
+import numpy as np
 import pytest
 
 from sequence_alignment_tools_tpu.apps import peptide_scan as jax_pep
@@ -24,6 +28,7 @@ from sequence_alignment_tools_tpu_torch.apps import primer_match as torch_pm
 from sequence_alignment_tools_tpu_torch.apps.compress_seq import (
     main as compress,
 )
+from sequence_alignment_tools_tpu_torch.ops.conv_scan import ConvScanner
 from tests.conftest import make_synthetic_fasta
 
 AAS = "ACDEFGHIKLMNPQRSTVWY"
@@ -145,3 +150,33 @@ def test_dispatcher_runs_translated_tools(inputs, tool, flags, capsys,
     assert torch_main.main() == 0
     assert capsys.readouterr().out == want
     assert os.environ["SAT_DEVICE"] == "cpu"
+
+
+def test_peptide_scan_prefix_census(tmp_path, capsys, monkeypatch):
+    """2,100 peptides of 7 to 20 residues, I = L (``-M 2``), over 2^18 +
+    6,000 residues: with ``SAT_HOST_SCAN=0`` the port takes the census
+    keyed by 14-residue prefixes, and its stdout equals the JAX
+    package's."""
+    prot = str(tmp_path / "prot.fasta")
+    total = (1 << 18) + 6_000
+    seq = make_synthetic_fasta(prot, n_entries=4, total=total, seed=53,
+                               alphabet=AAS)
+    assert compress(["-i", prot, "-n", "true"]) == 0
+    rng = np.random.default_rng(53)
+    peps = set()
+    while len(peps) < 2_100:
+        at = int(rng.integers(0, total - 20))
+        peps.add(seq[at : at + int(rng.integers(7, 21))])
+    peps_path = str(tmp_path / "peps.txt")
+    with open(peps_path, "w") as f:
+        f.write("\n".join(sorted(peps)) + "\n")
+    seen = []
+    monkeypatch.setattr(ConvScanner, "_route",
+                        lambda self, msg: seen.append(msg))
+    want, got = _both(jax_pep, torch_pep,
+                      ["-i", prot, "-P", peps_path, "-M", "2"], capsys,
+                      monkeypatch, "0")
+    assert seen == ["census kernel (2100 patterns, prefix-keyed at 14; "
+                    "plain PyTorch, CPU)"]
+    assert want.count("\n") >= 2_000
+    assert got == want
